@@ -1,0 +1,117 @@
+"""The steady-state benchmark problem (counterpart of
+``bench.build_bench_problem``): a synthetic deforming scene, P landmark slots
+seeded at uniformly drawn keypoints at depth 3, an all-pairs deformation
+graph, one keyframe and one temporal snapshot, plus six rendered frames.
+
+The initial keypoints come from ``numpy.random.default_rng(seed)``, so the
+same problem can be built on any device (and handed to the JAX package).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nrslam_tpu_torch.datasets import synthetic
+from nrslam_tpu_torch.geometry import cameras, se3
+from nrslam_tpu_torch.ops import klt
+from nrslam_tpu_torch.slam import graph as graph_mod
+from nrslam_tpu_torch.slam import state as state_mod
+from nrslam_tpu_torch.slam.state import Config
+
+
+def initial_keypoints(max_points: int, height: int, width: int,
+                      seed: int = 0) -> np.ndarray:
+    """[P, 2] float32 keypoints uniform in the image minus a 25 px border."""
+    rng = np.random.default_rng(seed)
+    u = 25 + (width - 50) * rng.random(max_points)
+    v = 25 + (height - 50) * rng.random(max_points)
+    return np.stack([u, v], -1).astype(np.float32)
+
+
+def build_bench_problem(max_points: int = 768, height: int = 480,
+                        width: int = 640, max_new_kp: int = 256,
+                        device=None, seed: int = 0):
+    """Returns (state, raw_frames [6 x [H, W]], mask, cam, config)."""
+    scene = synthetic.SceneConfig(height=height, width=width,
+                                  deform_amp=0.02)
+    cam = synthetic.camera(scene, device)
+    config = Config(max_points=max_points, max_new_keypoints=max_new_kp,
+                    rad_per_pixel=1.0 / scene.fx)
+
+    gray0, _, _ = synthetic.render_frame(0, scene, device)
+    pyr0 = klt.build_pyramid(gray0, config.klt_config)
+
+    state = state_mod.empty_state(config, gray0.shape, device)
+    uv = torch.as_tensor(initial_keypoints(max_points, height, width, seed),
+                         device=device)
+    positions = cameras.unproject(cam, uv) * 3.0
+    valid = torch.ones(max_points, dtype=torch.bool, device=device)
+    refs = klt.set_reference(pyr0, uv, valid, config.klt_config)
+    state = state._replace(
+        slot_used=valid,
+        track_id=torch.arange(max_points, dtype=torch.int32, device=device),
+        has_3d=valid,
+        positions=positions,
+        keypoints=uv,
+        status=torch.zeros(max_points, dtype=torch.int32, device=device),
+        refs=refs,
+        graph=graph_mod.initialize(state.graph, positions, valid, 3.0),
+    )
+    state = state_mod.insert_temporal_snapshot(state)
+    state = state_mod.insert_keyframe(state)
+
+    raw_frames = [synthetic.render_frame(i, scene, device)[0]
+                  for i in range(1, 7)]
+    mask = torch.ones(gray0.shape, dtype=torch.bool, device=device)
+    return state, raw_frames, mask, cam, config
+
+
+def solver_problem(kind: str = cameras.PINHOLE, device=None):
+    """A seeded tracking-solver problem at the frame's shapes: P=768
+    landmarks in a 2.4 x 1.8 x 1.5 box ~3 units ahead, a smooth deformation
+    (amplitude 0.05), observations from a known pose with 0.3 px noise, 5%
+    gross outliers and 10% masked points, and a K=11 nearest-neighbour pair
+    table with RBF weights (P*K directed entries; after ``compact_pairs``
+    E = (ceil(K/2)+1) P = 5376).
+
+    Returns (cam, T_seed (identity), X [P,3], obs [P,2], valid [P],
+    pairs (raw, before compaction)).
+    """
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+
+    P, K, deform_amp = 768, 11, 0.05
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
+                  rng.uniform(2.5, 4.0, P)], -1).astype(np.float32)
+    flow = deform_amp * np.stack([np.sin(2.0 * X[:, 0]),
+                                  np.cos(1.5 * X[:, 1]),
+                                  np.sin(X[:, 0] + X[:, 1])], -1)
+    if kind == cameras.PINHOLE:
+        cam = cameras.pinhole(472.65, 472.65, 479.5, 359.5, device=device)
+    else:
+        cam = cameras.kannala_brandt8(400.0, 400.0, 479.5, 359.5,
+                                      0.05, -0.01, 0.004, -0.001,
+                                      device=device)
+    T_true = se3.exp(torch.tensor([0.02, -0.01, 0.015, 0.06, -0.04, 0.05],
+                                  dtype=torch.float32, device=device))
+    Xt = torch.as_tensor(X + flow.astype(np.float32), device=device)
+    obs = cameras.project(cam, se3.apply(T_true, Xt))
+    noise = rng.normal(0.0, 0.3, (P, 2)).astype(np.float32)
+    outlier = rng.random(P) < 0.05
+    noise[outlier] += rng.normal(0.0, 40.0, (int(outlier.sum()), 2))
+    obs = obs + torch.as_tensor(noise, device=device)
+    valid = torch.as_tensor(rng.random(P) >= 0.1, device=device)
+
+    d = np.linalg.norm(X[:, None] - X[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    idx = np.argsort(d, axis=-1, kind="stable")[:, :K]
+    dist = np.take_along_axis(d, idx, axis=-1).astype(np.float32)
+    sigma = np.median(dist) * 3
+    w = np.exp(-(dist ** 2) / (2 * sigma ** 2)).astype(np.float32)
+    pairs = pd.pairs_from_neighbors(
+        torch.as_tensor(idx, device=device), torch.as_tensor(w, device=device),
+        torch.as_tensor(dist, device=device),
+        torch.ones((P, K), dtype=torch.bool, device=device))
+    return (cam, se3.identity(device=device), torch.as_tensor(X, device=device),
+            obs, valid, pairs)

@@ -1,0 +1,297 @@
+// Shared scalar device math for the whole-solver LM kernels.
+//
+// Port of nrslam_tpu/solver/pallas_common.py: quaternion / SE(3) algebra,
+// the 3x3 adjugate inverse, the damped 6x6 block-Schur solve and inverse,
+// and pinhole / Kannala-Brandt-8 projection with its analytic 2x3 Jacobian.
+// Everything is float32 with the same formulas (and operation order where it
+// matters) as the Pallas kernels, so results match the plain PyTorch drivers
+// to float tolerance. Also holds the block-wide reductions both kernels use.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace nrslam {
+
+constexpr int kPinhole = 0;
+constexpr int kKB8 = 1;
+
+// ---------------------------------------------------------------------------
+// Quaternions (w, x, y, z) and SE(3)
+// ---------------------------------------------------------------------------
+
+__device__ inline void quat_mul(const float a[4], const float b[4],
+                                float o[4]) {
+  o[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
+  o[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
+  o[2] = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
+  o[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
+}
+
+__device__ inline void quat_normalize(float q[4]) {
+  const float inv =
+      1.0f / sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+  for (int k = 0; k < 4; ++k) q[k] *= inv;
+}
+
+// v + 2 w (u x v) + 2 u x (u x v)
+__device__ inline void quat_rotate(const float q[4], const float v[3],
+                                   float o[3]) {
+  const float w = q[0], ux = q[1], uy = q[2], uz = q[3];
+  const float cx = uy * v[2] - uz * v[1];
+  const float cy = uz * v[0] - ux * v[2];
+  const float cz = ux * v[1] - uy * v[0];
+  const float dx = uy * cz - uz * cy;
+  const float dy = uz * cx - ux * cz;
+  const float dz = ux * cy - uy * cx;
+  o[0] = v[0] + 2.0f * (w * cx + dx);
+  o[1] = v[1] + 2.0f * (w * cy + dy);
+  o[2] = v[2] + 2.0f * (w * cz + dz);
+}
+
+// Row-major 3x3 rotation matrix.
+__device__ inline void quat_to_matrix(const float q[4], float R[9]) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  R[0] = 1 - 2 * (yy + zz); R[1] = 2 * (xy - wz);     R[2] = 2 * (xz + wy);
+  R[3] = 2 * (xy + wz);     R[4] = 1 - 2 * (xx + zz); R[5] = 2 * (yz - wx);
+  R[6] = 2 * (xz - wy);     R[7] = 2 * (yz + wx);     R[8] = 1 - 2 * (xx + yy);
+}
+
+// SE(3) exp of the twist (omega, v), Taylor-guarded at theta^2 < 1e-12.
+__device__ inline void se3_exp(const float w[3], const float v[3], float q[4],
+                               float t[3]) {
+  const float theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const bool small = theta2 < 1e-12f;
+  const float safe_t2 = small ? 1.0f : theta2;
+  const float safe_t = sqrtf(safe_t2);
+  const float theta = small ? 0.0f : safe_t;
+  const float half = 0.5f * safe_t;
+  const float sinc_half = small ? 0.5f - theta2 / 48.0f : sinf(half) / safe_t;
+  q[0] = cosf(0.5f * theta);
+  q[1] = w[0] * sinc_half;
+  q[2] = w[1] * sinc_half;
+  q[3] = w[2] * sinc_half;
+  const float A = small ? 0.5f - theta2 / 24.0f
+                        : (1.0f - cosf(safe_t)) / safe_t2;
+  const float B = small ? 1.0f / 6.0f - theta2 / 120.0f
+                        : (safe_t - sinf(safe_t)) / (safe_t2 * safe_t);
+  const float cx = w[1] * v[2] - w[2] * v[1];
+  const float cy = w[2] * v[0] - w[0] * v[2];
+  const float cz = w[0] * v[1] - w[1] * v[0];
+  const float dx = w[1] * cz - w[2] * cy;
+  const float dy = w[2] * cx - w[0] * cz;
+  const float dz = w[0] * cy - w[1] * cx;
+  t[0] = v[0] + A * cx + B * dx;
+  t[1] = v[1] + A * cy + B * dy;
+  t[2] = v[2] + A * cz + B * dz;
+  quat_normalize(q);
+}
+
+// exp(dx) * (q, t): the g2o left-multiplicative update.
+__device__ inline void se3_retract(const float q[4], const float t[3],
+                                   const float dx[6], float qn[4],
+                                   float tn[3]) {
+  float qe[4], te[3], rt[3];
+  se3_exp(dx, dx + 3, qe, te);
+  quat_mul(qe, q, qn);
+  quat_normalize(qn);
+  quat_rotate(qe, t, rt);
+  for (int k = 0; k < 3; ++k) tn[k] = rt[k] + te[k];
+}
+
+// ---------------------------------------------------------------------------
+// Small dense solves (row-major)
+// ---------------------------------------------------------------------------
+
+__device__ inline void inv3(const float m[9], float o[9]) {
+  const float a = m[0], b = m[1], c = m[2];
+  const float d = m[3], e = m[4], f = m[5];
+  const float g = m[6], h = m[7], i = m[8];
+  const float A11 = e * i - f * h, A12 = c * h - b * i, A13 = b * f - c * e;
+  const float A21 = f * g - d * i, A22 = a * i - c * g, A23 = c * d - a * f;
+  const float A31 = d * h - e * g, A32 = b * g - a * h, A33 = a * e - b * d;
+  const float det = a * A11 + b * A21 + c * A31;
+  const float s = 1.0f / (fabsf(det) > 0.0f ? det : 1.0f);
+  o[0] = A11 * s; o[1] = A12 * s; o[2] = A13 * s;
+  o[3] = A21 * s; o[4] = A22 * s; o[5] = A23 * s;
+  o[6] = A31 * s; o[7] = A32 * s; o[8] = A33 * s;
+}
+
+__device__ inline void mat3_mul(const float a[9], const float b[9],
+                                float o[9]) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      o[i * 3 + j] = a[i * 3] * b[j] + a[i * 3 + 1] * b[3 + j]
+                     + a[i * 3 + 2] * b[6 + j];
+}
+
+// (H + lam I) blocks A (top-left, damped), B (top-right), C (damped), and
+// the Schur pieces Ainv, AinvB, Sinv shared by solve6 and inv6.
+__device__ inline void schur6(const float H[36], float lam, float Ainv[9],
+                              float AinvB[9], float Sinv[9], float B[9]) {
+  float A[9], C[9], BtAB[9], S[9], Bt[9];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      A[i * 3 + j] = H[i * 6 + j] + (i == j ? lam : 0.0f);
+      B[i * 3 + j] = H[i * 6 + j + 3];
+      C[i * 3 + j] = H[(i + 3) * 6 + j + 3] + (i == j ? lam : 0.0f);
+    }
+  inv3(A, Ainv);
+  mat3_mul(Ainv, B, AinvB);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Bt[i * 3 + j] = B[j * 3 + i];
+  mat3_mul(Bt, AinvB, BtAB);
+  for (int k = 0; k < 9; ++k) S[k] = C[k] - BtAB[k];
+  inv3(S, Sinv);
+}
+
+// Solve (H + lam I) y = g via the 3x3-block Schur complement.
+__device__ inline void solve6(const float H[36], const float g[6], float lam,
+                              float y[6]) {
+  float Ainv[9], AinvB[9], Sinv[9], B[9];
+  schur6(H, lam, Ainv, AinvB, Sinv, B);
+  float Ag1[3], rhs2[3];
+  for (int i = 0; i < 3; ++i)
+    Ag1[i] = Ainv[i * 3] * g[0] + Ainv[i * 3 + 1] * g[1]
+             + Ainv[i * 3 + 2] * g[2];
+  for (int i = 0; i < 3; ++i)
+    rhs2[i] = g[3 + i] - (B[i] * Ag1[0] + B[3 + i] * Ag1[1]
+                          + B[6 + i] * Ag1[2]);
+  for (int i = 0; i < 3; ++i)
+    y[3 + i] = Sinv[i * 3] * rhs2[0] + Sinv[i * 3 + 1] * rhs2[1]
+               + Sinv[i * 3 + 2] * rhs2[2];
+  for (int i = 0; i < 3; ++i)
+    y[i] = Ag1[i] - (AinvB[i * 3] * y[3] + AinvB[i * 3 + 1] * y[4]
+                     + AinvB[i * 3 + 2] * y[5]);
+}
+
+// Full inverse of (H + lam I) via the same Schur complement.
+__device__ inline void inv6(const float H[36], float lam, float o[36]) {
+  float Ainv[9], AinvB[9], Sinv[9], B[9], ABS[9], TR[9];
+  schur6(H, lam, Ainv, AinvB, Sinv, B);
+  mat3_mul(AinvB, Sinv, ABS);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      // TL = Ainv + (AinvB Sinv) AinvB^T
+      const float tl = ABS[i * 3] * AinvB[j * 3] + ABS[i * 3 + 1] * AinvB[j * 3 + 1]
+                       + ABS[i * 3 + 2] * AinvB[j * 3 + 2];
+      o[i * 6 + j] = Ainv[i * 3 + j] + tl;
+      TR[i * 3 + j] = -ABS[i * 3 + j];
+    }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      o[i * 6 + j + 3] = TR[i * 3 + j];
+      o[(i + 3) * 6 + j] = TR[j * 3 + i];
+      o[(i + 3) * 6 + j + 3] = Sinv[i * 3 + j];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Camera projection with Jacobian. cam = (fx, fy, cx, cy, k0..k3).
+// J = (d pu/dX, d pu/dY, d pu/dZ, d pv/dX, d pv/dY, d pv/dZ).
+// ---------------------------------------------------------------------------
+
+__device__ inline void project_with_jacobian(int kind, const float cam[8],
+                                             float x, float y, float z,
+                                             float* pu, float* pv,
+                                             float J[6]) {
+  const float fx = cam[0], fy = cam[1], cx = cam[2], cy = cam[3];
+  if (kind == kPinhole) {
+    const float invz = 1.0f / z;
+    *pu = fx * x * invz + cx;
+    *pv = fy * y * invz + cy;
+    const float invz2 = invz * invz;
+    J[0] = fx * invz; J[1] = 0.0f; J[2] = -fx * x * invz2;
+    J[3] = 0.0f; J[4] = fy * invz; J[5] = -fy * y * invz2;
+    return;
+  }
+  const float k0 = cam[4], k1 = cam[5], k2 = cam[6], k3 = cam[7];
+  const float x2 = x * x, y2 = y * y, z2 = z * z;
+  const float r2 = x2 + y2;
+  const float r = sqrtf(r2);
+  const float r3 = r2 * r;
+  const float theta = atan2f(r, z);
+  const float t2 = theta * theta, t4 = t2 * t2, t6 = t4 * t2, t8 = t4 * t4;
+  const float f = theta * (1 + k0 * t2 + k1 * t4 + k2 * t6 + k3 * t8);
+  const float fd = 1 + 3 * k0 * t2 + 5 * k1 * t4 + 7 * k2 * t6 + 9 * k3 * t8;
+  const float psi_c = x / fmaxf(r, 1e-12f);
+  const float psi_s = y / fmaxf(r, 1e-12f);
+  *pu = fx * f * psi_c + cx;
+  *pv = fy * f * psi_s + cy;
+  const float denom = r2 * (r2 + z2);
+  J[0] = fx * (fd * z * x2 / denom + f * y2 / r3);
+  J[1] = fx * (fd * z * x * y / denom - f * x * y / r3);
+  J[2] = -fx * fd * x / (r2 + z2);
+  J[3] = fy * (fd * z * x * y / denom - f * x * y / r3);
+  J[4] = fy * (fd * z * y2 / denom + f * x2 / r3);
+  J[5] = -fy * fd * y / (r2 + z2);
+}
+
+// Pose Jacobian rows of the reprojection residual e = obs - pi(Xc):
+// J_pose = -dpi @ [-[Xc]x | I] (expmap columns, rotation first).
+__device__ inline void pose_jacobian(const float J[6], float xc, float yc,
+                                     float zc, float Ju[6], float Jv[6]) {
+  const float d00 = -J[0], d01 = -J[1], d02 = -J[2];
+  const float d10 = -J[3], d11 = -J[4], d12 = -J[5];
+  Ju[0] = d01 * (-zc) + d02 * yc;
+  Ju[1] = d00 * zc + d02 * (-xc);
+  Ju[2] = d00 * (-yc) + d01 * xc;
+  Ju[3] = d00; Ju[4] = d01; Ju[5] = d02;
+  Jv[0] = d11 * (-zc) + d12 * yc;
+  Jv[1] = d10 * zc + d12 * (-xc);
+  Jv[2] = d10 * (-yc) + d11 * xc;
+  Jv[3] = d10; Jv[4] = d11; Jv[5] = d12;
+}
+
+__device__ inline float huber_w(float chi2, float th) {
+  return chi2 <= th ? 1.0f : sqrtf(th / fmaxf(chi2, 1e-20f));
+}
+
+__device__ inline float huber_rho(float chi2, float th) {
+  return chi2 <= th ? chi2 : 2.0f * sqrtf(th) * sqrtf(fmaxf(chi2, 1e-20f)) - th;
+}
+
+// ---------------------------------------------------------------------------
+// Block reductions. Every thread passes its N partials; after the call
+// out[0..N) holds the block totals (visible to all threads). Needs
+// red[32 * N] shared floats, N <= blockDim.x, blockDim.x a multiple of 32.
+// Contains __syncthreads: call from uniform control flow only.
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ inline void block_sum(float (&v)[N], float* red, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[warp * N + k] = v[k];
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.0f;
+    const int nw = blockDim.x >> 5;
+    for (int w = 0; w < nw; ++w) s += red[w * N + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+__device__ inline float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  const int nw = blockDim.x >> 5;
+  for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();
+  return m;
+}
+
+}  // namespace nrslam

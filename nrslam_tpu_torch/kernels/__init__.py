@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``nrslam_tpu_torch/csrc`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, at first use,
+into ``kernels/_build/`` (listed in .gitignore). The library name carries a
+hash of the sources and flags, so an edited source triggers a rebuild and a
+stale build is never loaded. The library is bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``, every size ``c_int``, and every
+entry point returns ``cudaGetLastError()``.
+
+Nothing is built or loaded at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SOURCE_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signatures: name -> (restype, argtypes).
+_SIGNATURES = {
+    "nrslam_pose_only": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "nrslam_pose_deformation": (_I, [_P] * 16 + [_I] * 9 + [_P]),
+    "nrslam_pose_deformation_scratch": (ctypes.c_long, [_I, _I]),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{cuda_home}/bin); the CUDA kernels cannot be "
+                           "built")
+    return path
+
+
+def _sources():
+    return sorted(SOURCE_DIR.glob("*.cu")), sorted(SOURCE_DIR.glob("*.cuh"))
+
+
+def _digest() -> str:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library. Raises on failure."""
+    cu, _ = _sources()
+    so = BUILD_DIR / f"libnrslam_kernels_{_digest()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def require_cuda(name: str, *tensors) -> torch.device:
+    """Every tensor on one CUDA device, contiguous; returns that device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expected tensors on one CUDA device, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+    return dev
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

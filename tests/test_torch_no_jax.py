@@ -1,0 +1,35 @@
+"""The port never imports JAX: every module of nrslam_tpu_torch (and
+chip_smoke.py) is imported in a fresh interpreter, which must end with no
+``jax`` in ``sys.modules``."""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import nrslam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(nrslam_tpu_torch.__path__,
+                                               "nrslam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert len(names) >= 20, names
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m.startswith("nrslam_tpu."))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,78 @@
+"""Shared helpers for the JAX-vs-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; JAX
+results come back through ``jax.device_get`` and port results through
+``convert.to_numpy``.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from nrslam_tpu_torch import convert
+from nrslam_tpu_torch.bench_problem import initial_keypoints
+
+
+def to_port(tree):
+    """JAX pytree -> port pytree on the CPU."""
+    return convert.from_numpy(jax.device_get(tree), "cpu")
+
+
+def np_of(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(jax.device_get(x))
+
+
+def quat_err(qa, qb):
+    """Quaternion distance up to sign."""
+    qa, qb = np_of(qa), np_of(qb)
+    return min(np.linalg.norm(qa - qb), np.linalg.norm(qa + qb))
+
+
+def jax_bench_problem(max_points, height, width, max_new_kp, seed=0,
+                      n_used=None):
+    """bench.build_bench_problem at a chosen size, with the initial
+    keypoints drawn by numpy (``bench_problem.initial_keypoints``) instead of
+    JAX's PRNG. ``n_used`` < max_points leaves the remaining slots free, so
+    keyframes place new features and tracks without 3D appear.
+    Returns (state, raw_frames, mask, cam, config)."""
+    from nrslam_tpu.datasets import synthetic
+    from nrslam_tpu.geometry import cameras as cam_mod
+    from nrslam_tpu.ops import klt
+    from nrslam_tpu.slam import graph as graph_mod
+    from nrslam_tpu.slam import state as state_mod
+    from nrslam_tpu.slam.state import Config
+
+    scene = synthetic.SceneConfig(height=height, width=width,
+                                  deform_amp=0.02)
+    cam = synthetic.camera(scene)
+    config = Config(max_points=max_points, max_new_keypoints=max_new_kp,
+                    rad_per_pixel=1.0 / scene.fx)
+    gray0, _, _ = synthetic.render_frame(0, scene)
+    pyr0 = klt.build_pyramid(gray0, config.klt_config)
+    state = state_mod.empty_state(config, gray0.shape)
+    uv = jnp.asarray(initial_keypoints(max_points, height, width, seed))
+    positions = cam_mod.unproject(cam, uv) * 3.0
+    n_used = max_points if n_used is None else n_used
+    valid = jnp.arange(max_points) < n_used
+    refs = klt.set_reference(pyr0, uv, valid, config.klt_config)
+    state = state._replace(
+        slot_used=valid,
+        track_id=jnp.where(valid, jnp.arange(max_points, dtype=jnp.int32),
+                           -1),
+        has_3d=valid,
+        positions=positions,  # free slots keep stale (finite) data
+        keypoints=uv,
+        status=jnp.where(valid, 0, state_mod.NOT_IN_FRAME).astype(jnp.int32),
+        refs=refs,
+        graph=graph_mod.initialize(state.graph, positions, valid, 3.0),
+        next_track_id=jnp.int32(n_used),
+    )
+    state = state_mod.insert_temporal_snapshot(state)
+    state = state_mod.insert_keyframe(state)
+    raw = [synthetic.render_frame(i, scene)[0] for i in range(1, 7)]
+    return state, raw, jnp.ones(gray0.shape, bool), cam, config
