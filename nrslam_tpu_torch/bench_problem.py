@@ -115,3 +115,69 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None):
         torch.ones((P, K), dtype=torch.bool, device=device))
     return (cam, se3.identity(device=device), torch.as_tensor(X, device=device),
             obs, valid, pairs)
+
+
+def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,
+               seed: int = 0):
+    """A seeded keyframe-BA window at the keyframe's shapes: K=5 keyframes
+    of a sideways sweep over P=768 landmarks that deform between keyframes
+    (amplitude 0.02), exact observations of which ~25% per keyframe are
+    masked, noisy seeds (poses +N(0, 0.01), landmarks +N(0, 0.03)) and a
+    K=11 nearest-neighbour pair table (E = 5376 after ``compact_pairs``).
+    With ``n_valid`` < 5 the oldest slots are invalid as the pipeline leaves
+    them after ``bootstrap_map``: zero landmarks at the identity pose, no
+    observations.
+
+    Returns (cam, poses0 [K], L0 [K, P, 3], BAProblem)."""
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+
+    K, P, NB = 5, 768, 11
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
+                  rng.uniform(2.5, 3.8, P)], -1).astype(np.float32)
+    L = np.stack([X + 0.02 * np.stack([
+        np.sin(X[:, 0] * 2 + k), np.cos(X[:, 1] + 0.5 * k),
+        np.sin(X[:, 0] + X[:, 1] + k)], -1) for k in range(K)]
+    ).astype(np.float32)
+    tw = np.array([[0.01 * k, -0.005 * k, 0.008 * k, 0.06 * k, 0.0, 0.02 * k]
+                   for k in range(K)], np.float32)
+    if kind == cameras.PINHOLE:
+        cam = cameras.pinhole(472.65, 472.65, 479.5, 359.5, device=device)
+    else:
+        cam = cameras.kannala_brandt8(400.0, 400.0, 479.5, 359.5,
+                                      0.05, -0.01, 0.004, -0.001,
+                                      device=device)
+    poses = se3.exp(torch.as_tensor(tw, device=device))
+    L_t = torch.as_tensor(L, device=device)
+    obs = cameras.project(cam, se3.apply(se3.SE3(poses.q[:, None],
+                                                 poses.t[:, None]), L_t))
+    obs_valid = rng.random((K, P)) >= 0.25
+
+    d = np.linalg.norm(L[0][:, None] - L[0][None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    idx = np.argsort(d, axis=-1, kind="stable")[:, :NB]
+    dist = np.take_along_axis(d, idx, axis=-1).astype(np.float32)
+    w = np.exp(-(dist ** 2) / (2 * (np.median(dist) * 3) ** 2)) \
+        .astype(np.float32)
+    pairs = pd.pairs_from_neighbors(
+        torch.as_tensor(idx, device=device), torch.as_tensor(w, device=device),
+        torch.as_tensor(dist, device=device),
+        torch.ones((P, NB), dtype=torch.bool, device=device))
+    pairs = pd.compact_pairs(pairs, P)
+
+    t0 = poses.t + torch.as_tensor(
+        rng.normal(0, 0.01, (K, 3)).astype(np.float32), device=device)
+    L0 = L_t + torch.as_tensor(rng.normal(0, 0.03, L.shape)
+                               .astype(np.float32), device=device)
+    kf_valid = torch.arange(K, device=device) >= K - n_valid
+    ident = se3.identity((K,), device=device)
+    q0 = torch.where(kf_valid[:, None], poses.q, ident.q)
+    t0 = torch.where(kf_valid[:, None], t0, ident.t)
+    L0 = torch.where(kf_valid[:, None, None], L0, torch.zeros_like(L0))
+    obs = torch.where(kf_valid[:, None, None], obs, torch.zeros_like(obs))
+    obs_valid = torch.as_tensor(obs_valid, device=device) & kf_valid[:, None]
+    problem = ba.BAProblem(obs=obs, obs_valid=obs_valid, kf_valid=kf_valid,
+                           pairs=pairs,
+                           scale=torch.tensor(1.0, device=device))
+    return cam, se3.SE3(q0, t0), L0, problem

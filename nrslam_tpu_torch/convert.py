@@ -17,7 +17,7 @@ import torch
 
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.ops import klt
-from nrslam_tpu_torch.slam import graph, state, tracking
+from nrslam_tpu_torch.slam import graph, initializer, state, tracking
 from nrslam_tpu_torch.solver import bundle_adjustment, deformable_triangulation
 from nrslam_tpu_torch.solver import pose_deformation
 from nrslam_tpu_torch.utils.tree import is_namedtuple, tree_map
@@ -28,7 +28,8 @@ _CLASSES = {cls.__name__: cls for cls in (
     state.Config, pose_deformation.PairEdges,
     pose_deformation.PoseDeformationResult, tracking.FrameResult,
     deformable_triangulation.TriangulationInputs,
-    bundle_adjustment.BAProblem)}
+    bundle_adjustment.BAProblem, initializer.InitializerState,
+    initializer.InitializationResult, initializer.InitializerConfig)}
 
 
 def _leaf_to_tensor(x, device):
@@ -46,7 +47,7 @@ def from_numpy(tree, device=None):
         if name not in _CLASSES:
             raise TypeError(f"no port counterpart for {name}")
         cls = _CLASSES[name]
-        if name in ("Config", "KLTConfig"):
+        if name in ("Config", "KLTConfig", "InitializerConfig"):
             return cls(**tree._asdict())
         fields = tree._asdict()
         return cls(**{f: from_numpy(fields[f], device) for f in cls._fields})

@@ -99,3 +99,30 @@ def render_frame(frame_idx, config: SceneConfig, device=None):
     gray = texture(p[:, 0], p[:, 1], config).reshape(H, W)
     depth = (s * rays_cam[:, 2]).reshape(H, W)
     return torch.clamp(gray, 0.0, 255.0), depth, Tcw
+
+
+class SyntheticSequence:
+    """Dataset-style wrapper: get_image / get_depth_image / get_camera_pose
+    (simulation.h:34-38), rendered on ``device``."""
+
+    def __init__(self, config: SceneConfig = SceneConfig(),
+                 n_frames: int = 100, device=None):
+        self.config = config
+        self.n_frames = n_frames
+        self.device = device
+
+    def __len__(self):
+        return self.n_frames
+
+    def get_frame(self, idx):
+        """(gray [H, W], depth [H, W], Tcw)."""
+        return render_frame(idx, self.config, self.device)
+
+    def get_image(self, idx):
+        return self.get_frame(idx)[0]
+
+    def get_depth_image(self, idx):
+        return self.get_frame(idx)[1]
+
+    def get_camera_pose(self, idx):
+        return self.get_frame(idx)[2]

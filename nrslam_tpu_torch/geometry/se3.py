@@ -76,6 +76,29 @@ def quat_to_matrix(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m):
+    """Rotation matrix [..., 3, 3] -> wxyz quaternion, branch-free
+    (Shepperd): the best-conditioned of four constructions, w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw = torch.stack([1 + m00 + m11 + m22, m21 - m12, m02 - m20, m10 - m01],
+                     -1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                     -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21],
+                     -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22],
+                     -1)
+    traces = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                          1 - m00 + m11 - m22, 1 - m00 - m11 + m22], -1)
+    best = torch.argmax(traces, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 def compose(a: SE3, b: SE3) -> SE3:
     """a * b (apply b first, then a)."""
     return SE3(quat_normalize(quat_multiply(a.q, b.q)),

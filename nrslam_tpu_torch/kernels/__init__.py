@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``nrslam_tpu_torch/csrc`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
-into ``kernels/_build/`` (listed in .gitignore). The library name carries a
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
+one shared library with a plain C interface, at first use, into
+``kernels/_build/`` (listed in .gitignore). The library name carries a
 hash of the sources and flags, so an edited source triggers a rebuild and a
 stale build is never loaded. The library is bound with ``ctypes``: every
 pointer and the stream are ``c_void_p``, every size ``c_int``, and every
@@ -28,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "nrslam_pose_only": (_I, [_P] * 6 + [_I] * 7 + [_P]),
     "nrslam_pose_deformation": (_I, [_P] * 16 + [_I] * 9 + [_P]),
     "nrslam_pose_deformation_scratch": (ctypes.c_long, [_I, _I]),
+    "nrslam_ba": (_I, [_P] * 16 + [_I] * 6 + [_P]),
+    "nrslam_ba_scratch": (ctypes.c_long, [_I, _I, _I]),
 }
 
 
@@ -67,6 +70,17 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every (name, Popen); raise with the output of a failure."""
+    failed = []
+    for name, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{out}{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library. Raises on failure."""
@@ -74,15 +88,18 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libnrslam_kernels_{_digest()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
+            nvcc = _nvcc()
+            _run([(f.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)], text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+                for f, o in zip(cu, objs)])
+            linked = os.path.join(tmp, "lib.so")
+            _run([("link", subprocess.Popen(
+                [nvcc, "-shared", "-o", linked, *objs], text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))])
+            os.replace(linked, so)
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

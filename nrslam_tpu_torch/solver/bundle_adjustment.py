@@ -1,12 +1,24 @@
-"""Local deformable bundle adjustment over the keyframe window, op-level
-driver (counterpart of nrslam_tpu/solver/bundle_adjustment.py, the JAX
-pipeline's default BA path).
+"""Local deformable bundle adjustment over the keyframe window
+(counterpart of nrslam_tpu/solver/bundle_adjustment.py).
 
 Variables: K keyframe poses + one landmark copy per keyframe. Factors:
 reprojection (info 4, Huber 5.99), unrobust springs (info 100) per keyframe
 and 4-ary temporal dampers (info 1/(0.1 scale)^2, Huber 0.584) between
 consecutive keyframes. 5 LM steps, each a block-Jacobi PCG with edge-list
 Hessian-vector products (gathers + ``index_add_``).
+
+``local_deformable_ba`` dispatches on the device of its inputs: CUDA tensors
+go to the hand-written kernel (``bundle_adjustment_cuda``), the JAX package's
+``set_backend("pallas")`` configuration; CPU tensors run the plain driver
+``local_deformable_ba_plain`` here.
+
+Unobserved copies take part in no factor. Both routes drop their terms
+rather than multiplying them by a zero mask: an invalid keyframe slot holds
+zero positions at the identity pose, whose projection is 0/0, and 0 * NaN
+would poison every sum. (The JAX package's op-level driver does multiply,
+so on a window with invalid slots every one of its LM steps is rejected and
+its BA leaves the window unchanged; its Pallas kernel sanitises those copies
+and solves the window, as both routes here do.)
 """
 
 from __future__ import annotations
@@ -82,7 +94,10 @@ def _system(cam, poses: se3.SE3, L, problem: BAProblem, obs_mask,
 
     e_r, J_pose, J_land = residuals.reprojection(
         cam, tree_map(lambda x: x[:, None], poses), L, problem.obs)
-    e_r = torch.where(obs_mask[..., None] > 0, e_r, torch.zeros_like(e_r))
+    live = obs_mask[..., None] > 0
+    e_r = torch.where(live, e_r, torch.zeros_like(e_r))
+    J_pose = torch.where(live[..., None], J_pose, torch.zeros_like(J_pose))
+    J_land = torch.where(live[..., None], J_land, torch.zeros_like(J_land))
     chi2_r = INFO_REPROJECTION * torch.sum(e_r * e_r, dim=-1)
     w_r = INFO_REPROJECTION * core.huber_weight(chi2_r, TH_2DOF) * obs_mask
 
@@ -154,11 +169,10 @@ def _block_preconditioner(H_pose, D, lam):
     return apply
 
 
-def local_deformable_ba(cam: cameras.Camera, poses0: se3.SE3, L0,
-                        problem: BAProblem, n_iters: int = 5,
-                        cg_iters: int = 32):
-    """Window BA from poses0 [K] and landmark seeds L0 [K, P, 3].
-    Returns (poses [K], landmarks [K, P, 3])."""
+def local_deformable_ba_plain(cam: cameras.Camera, poses0: se3.SE3, L0,
+                              problem: BAProblem, n_iters: int = 5,
+                              cg_iters: int = 32):
+    """Plain PyTorch driver (the CPU path and the kernel's oracle)."""
     K, P, _ = L0.shape
     sigma_s = 0.1 * problem.scale
     info_s = 1.0 / (sigma_s * sigma_s)
@@ -195,3 +209,16 @@ def local_deformable_ba(cam: cameras.Camera, poses0: se3.SE3, L0,
         L = torch.where(accepted, L_new, L)
         chi2_cur = torch.where(accepted, chi2_new, chi2_cur)
     return se3.SE3(q, t), L
+
+
+def local_deformable_ba(cam: cameras.Camera, poses0: se3.SE3, L0,
+                        problem: BAProblem, n_iters: int = 5,
+                        cg_iters: int = 32):
+    """Window BA from poses0 [K] and landmark seeds L0 [K, P, 3].
+    Returns (poses [K], landmarks [K, P, 3])."""
+    if L0.device.type == "cpu":
+        return local_deformable_ba_plain(cam, poses0, L0, problem, n_iters,
+                                         cg_iters)
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda
+    return bundle_adjustment_cuda.local_deformable_ba_cuda(
+        cam, poses0, L0, problem, n_iters, cg_iters)

@@ -75,6 +75,22 @@ def test_se3_exp_log_compose_inverse_apply_retract():
     _close(tse3.index(Tt, _t(idx)).q, jse3.index(Tj, jnp.asarray(idx)).q)
 
 
+def test_matrix_to_quat():
+    """Random rotations plus rotations by ~pi about each axis, so every one
+    of the four Shepperd constructions is picked; w >= 0 on both sides."""
+    rng = np.random.default_rng(1)
+    rv = rng.normal(size=(64, 3))
+    rv *= rng.uniform(0, np.pi, (64, 1)) / np.linalg.norm(rv, axis=-1,
+                                                          keepdims=True)
+    rv[:3] = 3.1 * np.eye(3)
+    tw = np.concatenate([rv, np.zeros_like(rv)], -1).astype(np.float32)
+    m = jse3.quat_to_matrix(jse3.exp(jnp.asarray(tw)).q)
+    qj, qt = jse3.matrix_to_quat(m), tse3.matrix_to_quat(_t(m))
+    _close(qt, qj)
+    _close(tse3.quat_to_matrix(qt), m)
+    assert (qt[:, 0] >= 0).all()
+
+
 CAMS = {
     "pinhole": ((300.0, 310.0, 160.0, 120.0), ()),
     "kb8": ((300.0, 310.0, 160.0, 120.0), (0.05, -0.01, 0.004, -0.001)),

@@ -7,9 +7,12 @@ results come back through ``jax.device_get`` and port results through
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nrslam_tpu_torch import convert
@@ -31,6 +34,74 @@ def quat_err(qa, qb):
     """Quaternion distance up to sign."""
     qa, qb = np_of(qa), np_of(qb)
     return min(np.linalg.norm(qa - qb), np.linalg.norm(qa + qb))
+
+
+def jax_ransac_draws(key, n_features: int, n_hypotheses: int):
+    """The draws the JAX initializer makes from ``key``: the kmeans
+    permutation [N] and the per-hypothesis Gumbel noise [H, N]
+    (initializer.py:115-121, 173-182), as port tensors."""
+    perm = jax.random.permutation(key, n_features)
+    keys = jax.random.split(jax.random.fold_in(key, 1), n_hypotheses)
+    gumbel = jax.vmap(lambda k: jax.random.gumbel(k, (n_features,)))(keys)
+    return to_port(perm), to_port(gumbel)
+
+
+@contextlib.contextmanager
+def jax_pallas_ba():
+    """Run the JAX package's keyframe BA in its ``set_backend("pallas")``
+    configuration, whose semantics the port's BA follows on windows with
+    invalid keyframe slots: the kernel's plain reference, the op-level
+    driver, inside the Pallas wrapper's own sanitising of unobserved copies
+    (bundle_adjustment_pallas.py:580-584, 662). It compiles several times
+    faster than the kernel in interpret mode, which
+    tests/test_torch_bundle_adjustment_kernel.py holds the port against
+    directly. Every jit trace is dropped on entry and on exit, so no
+    program traced with the other BA is reused."""
+    from nrslam_tpu.solver import bundle_adjustment as jba
+
+    original = jba.local_deformable_ba
+
+    def pallas_ba(cam, poses0, L0, problem, n_iters=5, cg_iters=32):
+        obs_ok = (problem.obs_valid & problem.kf_valid[:, None])[..., None]
+        benign = jnp.array([0.1, 0.1, 1.0], L0.dtype)
+        poses, L = original(
+            cam, poses0, jnp.where(obs_ok, L0, benign),
+            problem._replace(obs=jnp.where(obs_ok, problem.obs, 0.0)),
+            n_iters, cg_iters)
+        return poses, jnp.where(obs_ok, L, L0)
+
+    jax.clear_caches()
+    jba.local_deformable_ba = pallas_ba
+    try:
+        yield
+    finally:
+        jba.local_deformable_ba = original
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def pallas_ba_reference():
+    """``jax_pallas_ba`` for a whole test module (one trace per shape)."""
+    with jax_pallas_ba():
+        yield
+
+
+def entry_setting():
+    """The System entry tests' scene, the smallest at which the JAX System
+    initialises within a few frames (120x160, fx 125), and its
+    configurations: (scene, JAX camera, Config, InitializerConfig)."""
+    from nrslam_tpu.datasets import synthetic
+    from nrslam_tpu.slam import initializer
+    from nrslam_tpu.slam.state import Config
+
+    fx = 125.0
+    scene = synthetic.SceneConfig(height=120, width=160, fx=fx, fy=fx)
+    config = Config(max_points=128, max_new_keypoints=48,
+                    rad_per_pixel=1.0 / fx)
+    init_config = initializer.InitializerConfig(
+        max_features=192, min_matches=30, min_triangulated=25,
+        rad_per_pixel=1.0 / fx, n_hypotheses=48)
+    return scene, synthetic.camera(scene), config, init_config
 
 
 def jax_bench_problem(max_points, height, width, max_new_kp, seed=0,
