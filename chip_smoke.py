@@ -2,21 +2,36 @@
 """Drive the PyTorch + CUDA port (nrslam_tpu_torch) once on one GPU.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
+(``python3 chip_smoke.py --witness`` instead runs only the main path's
+System three ways, the card with the kernels, the card with the plain
+drivers, the CPU, and prints each one's accuracy and how far their
+trajectories drift apart; ``python3 chip_smoke.py --wrappers TREE`` only
+times the joint and BA wrappers of the package in TREE, e.g. another
+commit's ``git archive``: measurements, not checks.)
 
 Phases (any failure raises and exits non-zero; nothing is caught; each
 prints its seconds):
   1. require a CUDA device; print the card's name and power limit;
   2. build the three hand-written kernels from csrc/ with nvcc (sm_90a, one
-     nvcc per source, all started together);
+     nvcc per source, all started together) and print ptxas's register,
+     stack, spill and shared-memory report ([ptxas]);
   3. kernel phase: at the frame's shapes (P=768, E=5376 from a K=11 kNN
-     graph on a seeded scene), pinhole and KB8, the pose-only and joint
-     kernels against their plain PyTorch versions on the card, with the CPU
-     tests' tolerances and the tighter same-device gates below; then the
-     keyframe-BA kernel at the keyframe's shapes (K=5, P=768, E=5376,
-     noisy seeds, ~25% of copies unobserved), pinhole, KB8 and a window
-     with 3 of 5 valid slots, against the plain BA driver, with unobserved
-     copies checked unchanged. Kernels timed with CUDA events as the median
-     of 20 after warm-up, plain versions as the median of 5 (joint, BA);
+     graph on a seeded scene) and at the 320x240 slice's (P=384, E=2688),
+     pinhole and KB8, the pose-only and joint kernels against their plain
+     PyTorch versions on the card, with the CPU tests' tolerances and the
+     tighter same-device gates below; then the keyframe-BA kernel at the
+     keyframe's shapes (K=5, P=768, E=5376, noisy seeds, ~25% of copies
+     unobserved), pinhole, KB8 and a window with 3 of 5 valid slots,
+     against the plain BA driver, with unobserved copies checked unchanged.
+     The joint and BA kernels must give the same bits on two launches
+     ([determinism]). Kernels timed with CUDA events as the median of 20
+     after warm-up, alone on prepared inputs and through their wrappers,
+     plain versions as the median of 5 (joint, BA); each with the work it
+     reports (LM steps, CG trips, linearisations) and its bound;
+  3b. shared-memory overflow: the joint at P=4096 and 9216 and the BA at
+     K=8 with P=768, 1536 and 2048, where edge-end records, the full
+     vector copies or the owned state no longer fit in shared memory,
+     against the plain drivers under the same gates ([overflow]);
   4. slice parity: 6 frames of frame_step at 320x240/P=384 on CUDA (with
      the kernels) and on the CPU (plain versions) from one start state;
   5. system parity: System.track_image_with_depth from frame 0 on the
@@ -41,8 +56,10 @@ prints its seconds):
   8. the pose-only kernel against its plain version on the inputs the main
      path's two-view refinement gave it (P = 1024 features, only the
      triangulated ones valid), at the same-device gate, and timed.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (launches on the main
+path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
+bare launch on prepared inputs); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -103,6 +120,153 @@ def quat_err(qa, qb) -> float:
                float(torch.linalg.norm(qa + qb)))
 
 
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3 bandwidth. A kernel's bound is the larger
+# of its operations over the first and its bytes over the second.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# Float operations the LM solves need, from the work each call reports (LM
+# steps, CG trips, linearisations) and the problem's sizes; each edge term
+# is counted once, although the kernels form it at both endpoints.
+def joint_flops(work, P: int, E_live: int) -> float:
+    """Per CG trip ~140 per point (reprojection Hv, 6x6 pose partials, the
+    CG vector updates) and ~24 per live edge (damper + spring Hv term and
+    its scatter); per linearisation ~220 per point (projection, Jacobians,
+    H / g partials) and ~70 per live edge; per LM step ~70 per point (3x3
+    block inverses, PCG start, trial flows)."""
+    return (work["cg_trips"] * (140 * P + 24 * E_live)
+            + work["linearizations"] * (220 * P + 70 * E_live)
+            + work["lm_steps"] * 70 * P)
+
+
+def ba_flops(work, K: int, P: int, E_live: int) -> float:
+    """As joint_flops per landmark copy (K P) and per (keyframe, live edge),
+    where a trip also carries the damper terms: ~105 per copy and ~36 per
+    (keyframe, live edge) per trip."""
+    return (work["cg_trips"] * (105 * K * P + 36 * K * E_live)
+            + work["linearizations"] * (220 * K * P + 70 * K * E_live)
+            + work["lm_steps"] * 70 * K * P)
+
+
+def pose_only_flops(lm_steps: int, n_valid: int, rounds: int = 3) -> float:
+    """~180 per valid point per evaluation of the 6x6 normal equations
+    (transform, projection, Jacobian, 21 H + 6 g + chi2 partials); one
+    evaluation per LM step plus one to start and one to re-level per
+    round."""
+    return 180 * n_valid * (lm_steps + 2 * rounds)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def read_work(header):
+    from nrslam_tpu_torch.solver.pose_deformation_cuda import WORK_FIELDS
+    return dict(zip(WORK_FIELDS, header.tolist()))
+
+
+def kernel_record(kernel_ms, wrapper_ms, plain_ms, flops, n_bytes, work):
+    """A kernel's entry of the JSON record (its error is added later):
+    ``ms`` is the wrapper call's time, as in every earlier record;
+    ``kernel_ms`` the bare launch on prepared inputs."""
+    bound_ms, by = bound(flops, n_bytes)
+    return {"ms": wrapper_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "work": work}
+
+
+def check_deterministic(label: str, launch, prep):
+    """Two launches on the same prepared inputs give the same bits."""
+    first = [t.clone() for t in launch(prep)]
+    second = launch(prep)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[determinism] {label}: two launches bit-identical={same}")
+    if not same:
+        raise AssertionError(f"{label}: two launches on the same inputs "
+                             "differ")
+
+
+def check_joint(label, cam, seed, X, obs, valid, cp):
+    """The joint kernel against the plain driver on one problem: the CPU
+    tests' tolerances, the same-device gates, two launches bit-identical.
+    Returns (max error, the work the kernel reports, the prepared
+    launch)."""
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+
+    Tk, fk, ck = pdc.pose_deformation_cuda(cam, seed, X, obs, valid, cp, 1.0)
+    work = read_work(pdc.last_work)
+    Tp, fp, cpl = pd.pose_deformation_plain(cam, seed, X, obs, valid, cp, 1.0)
+    dq, dt = quat_err(Tk.q, Tp.q), float(torch.linalg.norm(Tk.t - Tp.t))
+    dflow = torch.linalg.norm(fk - fp, dim=-1)[valid]
+    fmag = max(float(torch.median(torch.linalg.norm(fp, dim=-1))), 0.01)
+    med = float(torch.median(dflow))
+    flips = float(torch.mean(((ck <= pd.TH_2DOF) & valid)
+                             .ne((cpl <= pd.TH_2DOF) & valid).float()))
+    max_dflow = float(torch.max(dflow))
+    print(f"[kernel] pose_deformation {label}: E={int(cp.i.shape[0])} "
+          f"|dq|={dq:.3e} |dt|={dt:.3e} (tol {SAME_DEVICE_POSE_TOL:.0e}) "
+          f"median|dflow|={med:.3e} "
+          f"(tol {5e-3 * max(fmag / 0.01, 1.0):.3e}) "
+          f"inlier flips={flips:.4f} (tol 0.03) "
+          f"max|dflow|={max_dflow:.3e} (tol {SAME_DEVICE_FLOW_TOL:.0e})")
+    if not (dq < 2e-3 and dt < 2e-3 and flips < 0.03
+            and med < 5e-3 * max(fmag / 0.01, 1.0)):
+        raise AssertionError(f"pose_deformation {label} disagrees")
+    if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL
+            and max_dflow < SAME_DEVICE_FLOW_TOL):
+        raise AssertionError(f"pose_deformation {label} disagrees with "
+                             "plain beyond the same-device gates")
+    prep = pdc.prepare(cam, seed, X, obs, valid, cp, 1.0)
+    check_deterministic(f"pose_deformation {label}", pdc.launch, prep)
+    return max(dq, dt, max_dflow), work, prep
+
+
+def check_ba(label, cam, poses0, L0, prob, cg):
+    """The BA kernel against the plain driver on one window: the CPU tests'
+    1e-3 (tests/test_bundle_adjustment_pallas.py), the same-device gate on
+    pose and every observed landmark copy, unobserved copies bit for bit,
+    two launches bit-identical. Returns (max error, work, prepared
+    launch)."""
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+
+    K = L0.shape[0]
+    pk, Lk = bac.local_deformable_ba_cuda(cam, poses0, L0, prob, cg_iters=cg)
+    work = read_work(bac.last_work)
+    pp, Lp = ba.local_deformable_ba_plain(cam, poses0, L0, prob, cg_iters=cg)
+    live = prob.kf_valid
+    seen = prob.obs_valid & live[:, None]
+    dq = max(quat_err(pk.q[k], pp.q[k]) for k in range(K) if live[k])
+    dt = float(torch.max(torch.linalg.norm(pk.t - pp.t, dim=-1)[live]))
+    dL = float(torch.max(torch.linalg.norm(Lk - Lp, dim=-1)[seen]))
+    moved = float(torch.max(torch.linalg.norm(Lp - L0, dim=-1)[seen]))
+    same = bool(torch.equal(Lk[~seen], L0[~seen]))
+    print(f"[kernel] bundle_adjustment {label}: E={prob.pairs.i.shape[0]} "
+          f"|dq|={dq:.3e} |dt|={dt:.3e} max|dL|={dL:.3e} "
+          f"(tol 1e-3, same-device {SAME_DEVICE_BA_TOL:.0e}; the plain "
+          f"BA moved copies by up to {moved:.3e}) unobserved copies "
+          f"unchanged={same}")
+    if not (dq < 1e-3 and dt < 1e-3 and dL < 1e-3 and same):
+        raise AssertionError(f"bundle_adjustment {label} disagrees")
+    if not (dq < SAME_DEVICE_BA_TOL and dt < SAME_DEVICE_BA_TOL
+            and dL < SAME_DEVICE_BA_TOL):
+        raise AssertionError(f"bundle_adjustment {label} disagrees with "
+                             "plain beyond the same-device gate")
+    prep = bac.prepare(cam, poses0, L0, prob, cg_iters=cg)
+    check_deterministic(f"bundle_adjustment {label}", bac.launch, prep)
+    return max(dq, dt, dL), work, prep
+
+
 def kernel_phase(dev):
     """Each kernel vs its plain version at the main-path shapes."""
     from nrslam_tpu_torch.bench_problem import solver_problem
@@ -110,71 +274,70 @@ def kernel_phase(dev):
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
 
-    rec = {"pose_only": {"err": 0.0}, "pose_deformation": {"err": 0.0}}
-    for kind in ("pinhole", "kb8"):
-        cam, T0, X, obs, valid, pairs = solver_problem(kind, device=dev)
+    rec = {}
+    err_po = err_pd = 0.0
+    for kind, P in (("pinhole", 768), ("kb8", 768), ("pinhole", 384),
+                    ("kb8", 384)):
+        cam, T0, X, obs, valid, pairs = solver_problem(kind, device=dev, P=P)
+        main = P == 768
+        label = f"{kind} P={P}"
 
         # Kernel 1: |dq|, |dt| below SAME_DEVICE_POSE_TOL; the CPU tests'
         # 1e-4 (tests/test_torch_pose_only.py) is implied.
         T_k = pose_only_cuda.camera_pose_optimization_cuda(cam, T0, X, obs,
                                                            valid)
+        po_steps = int(pose_only_cuda.last_lm_steps.item())
         T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
         dq, dt = quat_err(T_k.q, T_p.q), float(torch.linalg.norm(T_k.t - T_p.t))
-        print(f"[kernel] pose_only {kind}: |dq|={dq:.3e} |dt|={dt:.3e} "
+        print(f"[kernel] pose_only {label}: |dq|={dq:.3e} |dt|={dt:.3e} "
               f"(tol {SAME_DEVICE_POSE_TOL:.0e})")
         if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL):
-            raise AssertionError(f"pose_only {kind} disagrees with plain")
-        ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
-            cam, T0, X, obs, valid))
-        ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
-            cam, T0, X, obs, valid))
-        print(f"[kernel] pose_only {kind}: kernel {ms_k:.4f} ms, plain "
-              f"{ms_p:.4f} ms (P={X.shape[0]})")
-        r = rec["pose_only"]
-        r["err"] = max(r["err"], dq, float(torch.max(torch.abs(T_k.t - T_p.t))))
-        if kind == "pinhole":
-            r["ms"], r["plain_ms"] = ms_k, ms_p
+            raise AssertionError(f"pose_only {label} disagrees with plain")
+        err_po = max(err_po, dq, float(torch.max(torch.abs(T_k.t - T_p.t))))
+        if main:
+            ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
+                cam, T0, X, obs, valid))
+            ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
+                cam, T0, X, obs, valid))
+            flops = pose_only_flops(po_steps, int(valid.sum()))
+            # landmarks, observations, the float mask, params [16], out [8]
+            n_b = nbytes(X, obs) + 4 * P + 4 * 16 + 4 * 8
+            b_ms, by = bound(flops, n_b)
+            print(f"[kernel] pose_only {label}: kernel {ms_k:.4f} ms, plain "
+                  f"{ms_p:.4f} ms; {po_steps} LM steps; bound {b_ms:.6f} ms "
+                  f"({by}: {flops / 1e6:.3f} MFLOP, {n_b / 1e6:.4f} MB), "
+                  f"kernel/bound {ms_k / b_ms:.0f}")
+            if kind == "pinhole":
+                rec["pose_only"] = kernel_record(ms_k, ms_k, ms_p, flops, n_b,
+                                                 {"lm_steps": po_steps})
 
         # Kernel 2: the tolerances of tests/test_pose_deformation_pallas.py,
         # then the same-device gates on pose and on every point's flow.
-        seed = T_p
         cp = pd.compact_pairs(pairs, X.shape[0], valid)
-        E = int(cp.i.shape[0])
-        Tk, fk, ck = pdc.pose_deformation_cuda(cam, seed, X, obs, valid, cp,
-                                               1.0)
-        Tp, fp, cpl = pd.pose_deformation_plain(cam, seed, X, obs, valid, cp,
-                                                1.0)
-        dq, dt = quat_err(Tk.q, Tp.q), float(torch.linalg.norm(Tk.t - Tp.t))
-        m = valid
-        dflow = torch.linalg.norm(fk - fp, dim=-1)[m]
-        fmag = max(float(torch.median(torch.linalg.norm(fp, dim=-1))), 0.01)
-        med = float(torch.median(dflow))
-        flips = float(torch.mean(((ck <= pd.TH_2DOF) & m)
-                                 .ne((cpl <= pd.TH_2DOF) & m).float()))
-        max_dflow = float(torch.max(dflow))
-        print(f"[kernel] pose_deformation {kind}: E={E} |dq|={dq:.3e} "
-              f"|dt|={dt:.3e} (tol {SAME_DEVICE_POSE_TOL:.0e}) "
-              f"median|dflow|={med:.3e} "
-              f"(tol {5e-3 * max(fmag / 0.01, 1.0):.3e}) "
-              f"inlier flips={flips:.4f} (tol 0.03) "
-              f"max|dflow|={max_dflow:.3e} (tol {SAME_DEVICE_FLOW_TOL:.0e})")
-        if not (dq < 2e-3 and dt < 2e-3 and flips < 0.03
-                and med < 5e-3 * max(fmag / 0.01, 1.0)):
-            raise AssertionError(f"pose_deformation {kind} disagrees")
-        if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL
-                and max_dflow < SAME_DEVICE_FLOW_TOL):
-            raise AssertionError(f"pose_deformation {kind} disagrees with "
-                                 "plain beyond the same-device gates")
+        err, work, prep = check_joint(label, cam, T_p, X, obs, valid, cp)
+        err_pd = max(err_pd, err)
+        ms_a = cuda_ms(lambda: pdc.launch(prep))
         ms_k = cuda_ms(lambda: pdc.pose_deformation_cuda(
-            cam, seed, X, obs, valid, cp, 1.0))
-        ms_p = cuda_ms(lambda: pd.pose_deformation_plain(
-            cam, seed, X, obs, valid, cp, 1.0), warmup=1, reps=5)
-        print(f"[kernel] pose_deformation {kind}: kernel {ms_k:.4f} ms, "
-              f"plain {ms_p:.4f} ms (P={X.shape[0]}, E={E})")
-        r = rec["pose_deformation"]
-        r["err"] = max(r["err"], dq, dt, max_dflow)
-        if kind == "pinhole":
-            r["ms"], r["plain_ms"] = ms_k, ms_p
+            cam, T_p, X, obs, valid, cp, 1.0))
+        E_live = int(prep.tensors[-3][-1]) // 2  # layout's inc_ptr[P]
+        flops = joint_flops(work, P, E_live)
+        n_b = nbytes(*prep.tensors, *prep.out)
+        b_ms, by = bound(flops, n_b)
+        ms_p = float("nan")
+        if main:
+            ms_p = cuda_ms(lambda: pd.pose_deformation_plain(
+                cam, T_p, X, obs, valid, cp, 1.0), warmup=1, reps=5)
+        print(f"[kernel] pose_deformation {label}: kernel alone {ms_a:.4f} ms, "
+              f"wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+              f"(E={int(cp.i.shape[0])}, {E_live} live edges); work {work}; "
+              f"{1e3 * ms_a / max(work['cg_trips'], 1):.2f} us per CG trip; "
+              f"bound {b_ms:.6f} ms ({by}: {flops / 1e6:.2f} MFLOP, "
+              f"{n_b / 1e6:.3f} MB), kernel/bound {ms_a / b_ms:.0f}")
+        if main and kind == "pinhole":
+            rec["pose_deformation"] = kernel_record(ms_a, ms_k, ms_p, flops,
+                                                    n_b, work)
+    rec["pose_only"]["err"] = err_po
+    rec["pose_deformation"]["err"] = err_pd
     rec["bundle_adjustment"] = ba_kernel_phase(dev)
     torch.cuda.synchronize()
     return rec
@@ -191,44 +354,88 @@ def ba_kernel_phase(dev):
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
 
     cg = Config().ba_cg_iters
-    r = {"err": 0.0}
+    r = None
+    err = 0.0
     for kind, n_valid in (("pinhole", 5), ("kb8", 5), ("pinhole", 3)):
         cam, poses0, L0, prob = ba_problem(kind, n_valid, device=dev)
-        pk, Lk = bac.local_deformable_ba_cuda(cam, poses0, L0, prob,
-                                              cg_iters=cg)
-        pp, Lp = ba.local_deformable_ba_plain(cam, poses0, L0, prob,
-                                              cg_iters=cg)
-        live = prob.kf_valid
-        seen = prob.obs_valid & live[:, None]
-        dq = max(quat_err(pk.q[k], pp.q[k]) for k in range(5) if live[k])
-        dt = float(torch.max(torch.linalg.norm(pk.t - pp.t, dim=-1)[live]))
-        dL = float(torch.max(torch.linalg.norm(Lk - Lp, dim=-1)[seen]))
-        moved = float(torch.max(torch.linalg.norm(Lp - L0, dim=-1)[seen]))
-        same = bool(torch.equal(Lk[~seen], L0[~seen]))
         label = f"{kind} {n_valid}/5 valid"
-        print(f"[kernel] bundle_adjustment {label}: E={prob.pairs.i.shape[0]} "
-              f"|dq|={dq:.3e} |dt|={dt:.3e} max|dL|={dL:.3e} "
-              f"(tol 1e-3, same-device {SAME_DEVICE_BA_TOL:.0e}; the plain "
-              f"BA moved copies by up to {moved:.3e}) unobserved copies "
-              f"unchanged={same}")
-        if not (dq < 1e-3 and dt < 1e-3 and dL < 1e-3 and same):
-            raise AssertionError(f"bundle_adjustment {label} disagrees")
-        if not (dq < SAME_DEVICE_BA_TOL and dt < SAME_DEVICE_BA_TOL
-                and dL < SAME_DEVICE_BA_TOL):
-            raise AssertionError(f"bundle_adjustment {label} disagrees with "
-                                 "plain beyond the same-device gate")
+        e, work, prep = check_ba(label, cam, poses0, L0, prob, cg)
+        err = max(err, e)
+        ms_a = cuda_ms(lambda: bac.launch(prep))
         ms_k = cuda_ms(lambda: bac.local_deformable_ba_cuda(
             cam, poses0, L0, prob, cg_iters=cg))
         ms_p = cuda_ms(lambda: ba.local_deformable_ba_plain(
             cam, poses0, L0, prob, cg_iters=cg), warmup=1, reps=5)
-        print(f"[kernel] bundle_adjustment {label}: kernel {ms_k:.4f} ms, "
-              f"plain {ms_p:.4f} ms (K=5, P=768, cg_iters={cg})")
-        r["err"] = max(r["err"], dq, dt, dL)
-        if n_valid == 5:
-            r[f"ms_{kind}"], r[f"plain_ms_{kind}"] = ms_k, ms_p
-            if kind == "pinhole":
-                r["ms"], r["plain_ms"] = ms_k, ms_p
+        K, P = L0.shape[0], L0.shape[1]
+        E_live = int(prep.tensors[-3][-1]) // 2  # layout's inc_ptr[P]
+        flops = ba_flops(work, K, P, E_live)
+        n_b = nbytes(*prep.tensors, *prep.out)
+        b_ms, by = bound(flops, n_b)
+        print(f"[kernel] bundle_adjustment {label}: kernel alone {ms_a:.4f} "
+              f"ms, wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms (K={K}, "
+              f"P={P}, cg_iters={cg}, {E_live} live edges); work {work}; "
+              f"{1e3 * ms_a / max(work['cg_trips'], 1):.2f} us per CG trip; "
+              f"bound {b_ms:.6f} ms ({by}: {flops / 1e6:.2f} MFLOP, "
+              f"{n_b / 1e6:.3f} MB), kernel/bound {ms_a / b_ms:.0f}")
+        if n_valid == 5 and kind == "pinhole":
+            r = kernel_record(ms_a, ms_k, ms_p, flops, n_b, work)
+    r["err"] = err
     return r
+
+
+def block_ends(prep) -> int:
+    """The most edge-ends any block of a prepared launch owns."""
+    off, ptr = prep.tensors[-4].long(), prep.tensors[-3].long()
+    return int(torch.max(ptr[off[1:]] - ptr[off[:-1]]))
+
+
+def overflow_phase(dev):
+    """The shared-memory plans the main path does not reach, each held to
+    the plain driver under the same gates as the main shapes: the joint at
+    P=4096 (full copies in global memory, z exchanged by pulls, edge-end
+    records overflowing) and P=9216 (owned state in global memory too); the
+    BA at K=8 with P=768 (edge-end records overflowing), P=1536 (full
+    copies in global memory) and P=2048 (owned state in global memory).
+    Each case checks that its launch took the plan it is meant to force
+    (the kernel's header)."""
+    from nrslam_tpu_torch.bench_problem import ba_problem, solver_problem
+    from nrslam_tpu_torch.slam.state import Config
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only
+
+    def report(name, label, work, prep, launch, forced):
+        ends = block_ends(prep)
+        plan = {"owned state in smem": work["owned_state_in_smem"],
+                "full copies in smem": work["full_vectors_in_smem"],
+                "edge-end records in smem": work["edge_ends_in_smem"],
+                "most edge-ends of a block": ends}
+        ms = cuda_ms(lambda: launch(prep), warmup=1, reps=5)
+        print(f"[overflow] {name} {label}: plan {plan}, kernel alone "
+              f"{ms:.4f} ms, work {work}")
+        want = {"records": work["edge_ends_in_smem"] < ends,
+                "full": work["full_vectors_in_smem"] == 0,
+                "owned": work["owned_state_in_smem"] == 0}
+        if not all(want[f] for f in forced):
+            raise AssertionError(f"{name} {label}: the launch did not take "
+                                 f"the plan it was meant to force {forced}")
+
+    for P, forced in ((4096, ("full", "records")), (9216, ("owned",))):
+        cam, T0, X, obs, valid, pairs = solver_problem("pinhole", device=dev,
+                                                       P=P)
+        seed = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
+        cp = pd.compact_pairs(pairs, P, valid)
+        label = f"pinhole P={P}"
+        _, work, prep = check_joint(label, cam, seed, X, obs, valid, cp)
+        report("pose_deformation", label, work, prep, pdc.launch, forced)
+    cg = Config().ba_cg_iters
+    for P, forced in ((768, ("records",)), (1536, ("full", "records")),
+                      (2048, ("owned",))):
+        cam, poses0, L0, prob = ba_problem("pinhole", 8, device=dev, K=8, P=P)
+        label = f"pinhole K=8 P={P}"
+        _, work, prep = check_ba(label, cam, poses0, L0, prob, cg)
+        report("bundle_adjustment", label, work, prep, bac.launch, forced)
 
 
 def compare_states(a, b, label: str):
@@ -295,8 +502,8 @@ def system_parity(dev):
     from nrslam_tpu_torch.slam.state import Config
 
     scene = synthetic.SceneConfig(relief=1.0, motion_translation=0.03)
-    seq = synthetic.SyntheticSequence(scene, n_frames=40)
-    cam = synthetic.camera(scene)
+    seq = synthetic.SyntheticSequence(scene, n_frames=40, device="cpu")
+    cam = synthetic.camera(scene, device="cpu")
     config = Config(max_points=384, max_new_keypoints=128,
                     rad_per_pixel=1.0 / scene.fx)
     init_config = initializer.InitializerConfig(
@@ -389,10 +596,13 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
                              f"{n // 5} keyframes")
 
 
-def system_at_scale(dev, card: str, n: int = 60):
-    """The main path: the System from frame 0 at 640x480, P=768. Returns
-    the launch counts of the run and the inputs of the pose-only solves
-    made on init frames (the two-view refinement's)."""
+def run_system(dev, n: int = 60):
+    """System.track_image_with_depth from frame 0 on the synthetic sequence
+    at 640x480, P=768, 256 new keypoints, default initializer, on `dev`.
+    Returns the run's record: per-frame ms by kind, init frame, the camera
+    position of every tracked frame, median depth RMSE, Sim(3) ATE, the
+    launch counts, the two-view refinements and the inputs of their
+    pose-only solves."""
     from nrslam_tpu_torch.datasets import synthetic
     from nrslam_tpu_torch.eval import metrics
     from nrslam_tpu_torch.slam import initializer, system
@@ -412,7 +622,7 @@ def system_at_scale(dev, card: str, n: int = 60):
     bac.launches = 0
     initializer.refines = 0
     ms = {"init": [], "keyframe": [], "non-keyframe": []}
-    est, gt, init_frame, out = [], [], None, {}
+    est, gt, poses, init_frame, out = [], [], {}, None, {}
     refine_inputs = []
     solve = pose_only.camera_pose_optimization
 
@@ -438,30 +648,43 @@ def system_at_scale(dev, card: str, n: int = 60):
                 init_frame = i if init_frame is None else init_frame
                 est.append(sysm.state.Tcw)
                 gt.append(T_gt)
+                poses[i] = sysm.state.Tcw.t.cpu()
     finally:
         pose_only.camera_pose_optimization = solve
-    launches = {"pose_only": pose_only_cuda.launches,
-                "pose_deformation": pdc.launches,
-                "bundle_adjustment": bac.launches}
-    refines = initializer.refines
+    return {
+        "status": sysm.status, "tracking": sysm.status == system.TRACKING,
+        "ms": ms, "init_frame": init_frame, "poses": poses,
+        "rmse": statistics.median(sysm.evaluator.rmse_history),
+        "ate": metrics.ate_rmse(est, gt, with_scale=True),
+        "n_tracked": len(est), "n3d": int(out.get("n_tracked_3d", 0)),
+        "finite": sysm.state is not None and bool(
+            torch.isfinite(sysm.state.positions).all()),
+        "launches": {"pose_only": pose_only_cuda.launches,
+                     "pose_deformation": pdc.launches,
+                     "bundle_adjustment": bac.launches},
+        "refines": initializer.refines, "refine_inputs": refine_inputs}
+
+
+def system_at_scale(dev, card: str, n: int = 60):
+    """The main path: the System from frame 0 at 640x480, P=768. Returns
+    the launch counts of the run and the inputs of the pose-only solves
+    made on init frames (the two-view refinement's)."""
+    run = run_system(dev, n)
+    ms, launches, refines = run["ms"], run["launches"], run["refines"]
     steady = len(ms["keyframe"]) + len(ms["non-keyframe"])
-    n3d = int(out.get("n_tracked_3d", 0))
-    finite = sysm.state is not None and bool(
-        torch.isfinite(sysm.state.positions).all())
-    rmse = statistics.median(sysm.evaluator.rmse_history)
-    ate = metrics.ate_rmse(est, gt, with_scale=True)
     med = {k: statistics.median(v) if v else float("nan")
            for k, v in ms.items()}
     print(f"[system] 640x480 P=768 on {card}: {n} frames, status "
-          f"{sysm.status}, init frame {init_frame} ({refines} two-view "
-          f"refinements), init frames {len(ms['init'])} median "
+          f"{run['status']}, init frame {run['init_frame']} ({refines} "
+          f"two-view refinements), init frames {len(ms['init'])} median "
           f"{med['init']:.2f} ms (first {ms['init'][0]:.2f} ms), keyframes "
           f"{len(ms['keyframe'])} median {med['keyframe']:.2f} ms, "
           f"non-keyframes {len(ms['non-keyframe'])} median "
-          f"{med['non-keyframe']:.2f} ms; median depth RMSE {rmse:.5f}, "
-          f"Sim3 ATE {ate:.6f} over {len(est)} tracked frames; "
-          f"n_tracked_3d={n3d} finite={finite} launches={launches}")
-    if sysm.status != system.TRACKING or n3d < 10 or not finite:
+          f"{med['non-keyframe']:.2f} ms; median depth RMSE "
+          f"{run['rmse']:.5f}, Sim3 ATE {run['ate']:.6f} over "
+          f"{run['n_tracked']} tracked frames; n_tracked_3d={run['n3d']} "
+          f"finite={run['finite']} launches={launches}")
+    if not run["tracking"] or run["n3d"] < 10 or not run["finite"]:
         raise AssertionError("system at scale: not tracking, < 10 tracked "
                              "3D points or non-finite positions")
     want = {"pose_only": steady + 3 * refines, "pose_deformation": steady,
@@ -469,10 +692,86 @@ def system_at_scale(dev, card: str, n: int = 60):
     if launches != want or not all(launches.values()):
         raise AssertionError(f"system at scale: launches {launches}, "
                              f"expected {want}")
-    if len(refine_inputs) != 3 * refines:
-        raise AssertionError(f"{len(refine_inputs)} pose-only solves on init "
-                             f"frames, expected 3 x {refines} refinements")
-    return launches, refine_inputs
+    if len(run["refine_inputs"]) != 3 * refines:
+        raise AssertionError(f"{len(run['refine_inputs'])} pose-only solves "
+                             f"on init frames, expected 3 x {refines} "
+                             "refinements")
+    return launches, run["refine_inputs"]
+
+
+def system_witness(dev, card: str):
+    """The main path's accuracy by three routes with the same frames and
+    draws: the card with the kernels, the card with the plain drivers in
+    their place, and the CPU (plain drivers). Prints each route's init
+    frame, median depth RMSE and Sim(3) ATE, and how far its tracked camera
+    positions are from the first route's. A measurement, not a gate."""
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
+
+    swaps = ((pose_only_cuda, "camera_pose_optimization_cuda",
+              pose_only.camera_pose_optimization_plain),
+             (pdc, "pose_deformation_cuda", pd.pose_deformation_plain),
+             (bac, "local_deformable_ba_cuda", ba.local_deformable_ba_plain))
+    runs = {"card, kernels": run_system(dev)}
+    saved = [getattr(m, name) for m, name, _ in swaps]
+    for m, name, plain in swaps:
+        setattr(m, name, plain)
+    try:
+        runs["card, plain drivers"] = run_system(dev)
+    finally:
+        for (m, name, _), fn in zip(swaps, saved):
+            setattr(m, name, fn)
+    runs["CPU, plain drivers"] = run_system(torch.device("cpu"))
+    for label, run in runs.items():
+        print(f"[witness] 640x480 P=768 {label} on {card}: status "
+              f"{run['status']}, init frame {run['init_frame']}, median "
+              f"depth RMSE {run['rmse']:.6f}, Sim3 ATE {run['ate']:.6f} over "
+              f"{run['n_tracked']} tracked frames, launches "
+              f"{run['launches']}")
+    for a, b in (("card, kernels", "card, plain drivers"),
+                 ("card, kernels", "CPU, plain drivers"),
+                 ("card, plain drivers", "CPU, plain drivers")):
+        pa, pb = runs[a]["poses"], runs[b]["poses"]
+        common = sorted(set(pa) & set(pb))
+        d = [float(torch.linalg.norm(pa[i] - pb[i])) for i in common]
+        first = {th: next((i for i, x in zip(common, d) if x > th), None)
+                 for th in (1e-5, 1e-4, 1e-3)}
+        print(f"[witness] camera position |dt|, {a} against {b}, over "
+              f"{len(common)} common tracked frames: at the first "
+              f"{d[0] if d else float('nan'):.3e}, max "
+              f"{max(d, default=float('nan')):.3e}; first frame above "
+              + ", ".join(f"{th:.0e}: {f}" for th, f in first.items()))
+
+
+def time_wrappers(dev, card: str):
+    """The joint and BA wrapper calls of the package imported (from this
+    checkout, or from another commit's unpacked tree given on the command
+    line) at the main-path shapes: median of 20 after 3 warm-ups, CUDA
+    events. Run it for two trees in one call to compare them on one card."""
+    from nrslam_tpu_torch.bench_problem import ba_problem, solver_problem
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only
+
+    out = []
+    for kind in ("pinhole", "kb8"):
+        cam, T0, X, obs, valid, pairs = solver_problem(kind, device=dev)
+        seed = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
+        cp = pd.compact_pairs(pairs, X.shape[0], valid)
+        out.append((f"joint {kind} P=768", cuda_ms(
+            lambda: pdc.pose_deformation_cuda(cam, seed, X, obs, valid, cp,
+                                              1.0))))
+    for kind, n_valid in (("pinhole", 5), ("kb8", 5), ("pinhole", 3)):
+        cam, poses0, L0, prob = ba_problem(kind, n_valid, device=dev)
+        out.append((f"BA {kind} {n_valid}/5", cuda_ms(
+            lambda: bac.local_deformable_ba_cuda(cam, poses0, L0, prob,
+                                                 cg_iters=16))))
+    print(f"[wrappers] {os.path.dirname(os.path.dirname(pdc.__file__))} on "
+          f"{card}: " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in out))
 
 
 def refine_kernel_check(inputs, rec):
@@ -504,10 +803,19 @@ def refine_kernel_check(inputs, rec):
 
 
 def main():
+    args = sys.argv[1:]
+    witness = args == ["--witness"]
+    wrappers = len(args) == 2 and args[0] == "--wrappers"
+    if args and not (witness or wrappers):
+        raise SystemExit("usage: python3 chip_smoke.py [--witness | "
+                         "--wrappers TREE]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    sys.path.insert(0, REPO)
+    root = os.path.abspath(args[1]) if wrappers else REPO
+    sys.path.insert(0, root)
     from nrslam_tpu_torch import kernels
+    if not kernels.__file__.startswith(root):
+        raise SystemExit(f"chip_smoke: nrslam_tpu_torch not found in {root}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -519,6 +827,11 @@ def main():
     kernels.library()
     print(f"[build] csrc/*.cu built with nvcc and loaded in "
           f"{time.perf_counter() - t_start:.2f} s")
+    # An older tree timed with --wrappers keeps no build log.
+    for src, log in sorted(getattr(kernels, "build_log", {}).items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[ptxas] {src}: {line.strip()}")
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -526,7 +839,14 @@ def main():
         print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s")
         return out
 
+    if witness:
+        phase("system witness", system_witness, dev, card)
+        return
+    if wrappers:
+        phase("wrappers", time_wrappers, dev, card)
+        return
     rec = phase("kernels", kernel_phase, dev)
+    phase("shared-memory overflow", overflow_phase, dev)
     phase("slice parity", slice_parity, dev)
     phase("system parity", system_parity, dev)
     phase("slice 320x240", slice_at_scale, dev, card, 384, 240, 320, 128)
@@ -549,6 +869,9 @@ def main():
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": rec[name]["err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
+        "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
+        "library_ms": rec[name]["library_ms"],
+        "kernel_ms": rec[name]["kernel_ms"], "work": rec[name]["work"],
     } for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 The package mirrors ``nrslam_tpu``'s module names (``geometry/se3.py``,
 ``slam/tracking.py``, ...) so each counterpart is easy to find. State pytrees
 are NamedTuples of tensors with the JAX package's field names; every function
-works on the device of its input tensors. The two whole-solver LM kernels of
-the steady-state frame (pose-only and joint pose+deformation) are hand-written
-CUDA C++ under ``csrc/``; on a CPU tensor their wrappers run the plain PyTorch
-version instead.
+works on the device of its input tensors, and constructors build on the card
+unless asked for the CPU (``utils/device.py``). The three whole-solver LM
+kernels (pose-only, joint pose+deformation, keyframe BA) are hand-written
+CUDA C++ under ``csrc/``; on a CPU tensor their wrappers run the plain
+PyTorch version instead.
 
 Parity with the JAX reference is held in float32 at full matmul precision, so
 TF32 is switched off once here, at import.

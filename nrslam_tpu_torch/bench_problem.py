@@ -18,6 +18,7 @@ from nrslam_tpu_torch.ops import klt
 from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam.state import Config
+from nrslam_tpu_torch.utils.device import resolve
 
 
 def initial_keypoints(max_points: int, height: int, width: int,
@@ -32,7 +33,9 @@ def initial_keypoints(max_points: int, height: int, width: int,
 def build_bench_problem(max_points: int = 768, height: int = 480,
                         width: int = 640, max_new_kp: int = 256,
                         device=None, seed: int = 0):
-    """Returns (state, raw_frames [6 x [H, W]], mask, cam, config)."""
+    """Returns (state, raw_frames [6 x [H, W]], mask, cam, config), on
+    the card unless ``device`` says otherwise."""
+    device = resolve(device)
     scene = synthetic.SceneConfig(height=height, width=width,
                                   deform_amp=0.02)
     cam = synthetic.camera(scene, device)
@@ -67,20 +70,36 @@ def build_bench_problem(max_points: int = 768, height: int = 480,
     return state, raw_frames, mask, cam, config
 
 
-def solver_problem(kind: str = cameras.PINHOLE, device=None):
-    """A seeded tracking-solver problem at the frame's shapes: P=768
-    landmarks in a 2.4 x 1.8 x 1.5 box ~3 units ahead, a smooth deformation
-    (amplitude 0.05), observations from a known pose with 0.3 px noise, 5%
-    gross outliers and 10% masked points, and a K=11 nearest-neighbour pair
-    table with RBF weights (P*K directed entries; after ``compact_pairs``
-    E = (ceil(K/2)+1) P = 5376).
+def _knn(X, K: int, rows: int = 1024):
+    """Each point's K nearest other points (stable order) and distances,
+    [P, K] each, in blocks of rows so that large P stays small in memory."""
+    idx, dist = [], []
+    for a in range(0, X.shape[0], rows):
+        d = np.linalg.norm(X[a:a + rows, None] - X[None], axis=-1)
+        d[np.arange(d.shape[0]), a + np.arange(d.shape[0])] = np.inf
+        i = np.argsort(d, axis=-1, kind="stable")[:, :K]
+        idx.append(i)
+        dist.append(np.take_along_axis(d, i, axis=-1).astype(np.float32))
+    return np.concatenate(idx), np.concatenate(dist)
+
+
+def solver_problem(kind: str = cameras.PINHOLE, device=None,
+                   P: int = 768):
+    """A seeded tracking-solver problem at the frame's shapes: P=768 (or
+    the 320x240 slice's 384) landmarks in a 2.4 x 1.8 x 1.5 box ~3 units
+    ahead, a smooth deformation (amplitude 0.05), observations from a known
+    pose with 0.3 px noise, 5% gross outliers and 10% masked points, and a
+    K=11 nearest-neighbour pair table with RBF weights (P*K directed
+    entries; after ``compact_pairs`` E = (ceil(K/2)+1) P, 5376 at P=768).
 
     Returns (cam, T_seed (identity), X [P,3], obs [P,2], valid [P],
-    pairs (raw, before compaction)).
+    pairs (raw, before compaction)), on the card unless ``device`` says
+    otherwise.
     """
     from nrslam_tpu_torch.solver import pose_deformation as pd
 
-    P, K, deform_amp = 768, 11, 0.05
+    device = resolve(device)
+    K, deform_amp = 11, 0.05
     rng = np.random.default_rng(0)
     X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
                   rng.uniform(2.5, 4.0, P)], -1).astype(np.float32)
@@ -103,10 +122,7 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None):
     obs = obs + torch.as_tensor(noise, device=device)
     valid = torch.as_tensor(rng.random(P) >= 0.1, device=device)
 
-    d = np.linalg.norm(X[:, None] - X[None], axis=-1)
-    np.fill_diagonal(d, np.inf)
-    idx = np.argsort(d, axis=-1, kind="stable")[:, :K]
-    dist = np.take_along_axis(d, idx, axis=-1).astype(np.float32)
+    idx, dist = _knn(X, K)
     sigma = np.median(dist) * 3
     w = np.exp(-(dist ** 2) / (2 * sigma ** 2)).astype(np.float32)
     pairs = pd.pairs_from_neighbors(
@@ -118,21 +134,24 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None):
 
 
 def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,
-               seed: int = 0):
+               seed: int = 0, K: int = 5, P: int = 768):
     """A seeded keyframe-BA window at the keyframe's shapes: K=5 keyframes
-    of a sideways sweep over P=768 landmarks that deform between keyframes
+    (K <= 8) of a sideways sweep over P=768 landmarks that deform between
+    keyframes
     (amplitude 0.02), exact observations of which ~25% per keyframe are
     masked, noisy seeds (poses +N(0, 0.01), landmarks +N(0, 0.03)) and a
     K=11 nearest-neighbour pair table (E = 5376 after ``compact_pairs``).
-    With ``n_valid`` < 5 the oldest slots are invalid as the pipeline leaves
+    With ``n_valid`` < K the oldest slots are invalid as the pipeline leaves
     them after ``bootstrap_map``: zero landmarks at the identity pose, no
     observations.
 
-    Returns (cam, poses0 [K], L0 [K, P, 3], BAProblem)."""
+    Returns (cam, poses0 [K], L0 [K, P, 3], BAProblem), on the card unless
+    ``device`` says otherwise."""
     from nrslam_tpu_torch.solver import bundle_adjustment as ba
     from nrslam_tpu_torch.solver import pose_deformation as pd
 
-    K, P, NB = 5, 768, 11
+    device = resolve(device)
+    NB = 11
     rng = np.random.default_rng(seed)
     X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
                   rng.uniform(2.5, 3.8, P)], -1).astype(np.float32)
@@ -154,10 +173,7 @@ def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,
                                                  poses.t[:, None]), L_t))
     obs_valid = rng.random((K, P)) >= 0.25
 
-    d = np.linalg.norm(L[0][:, None] - L[0][None], axis=-1)
-    np.fill_diagonal(d, np.inf)
-    idx = np.argsort(d, axis=-1, kind="stable")[:, :NB]
-    dist = np.take_along_axis(d, idx, axis=-1).astype(np.float32)
+    idx, dist = _knn(L[0], NB)
     w = np.exp(-(dist ** 2) / (2 * (np.median(dist) * 3) ** 2)) \
         .astype(np.float32)
     pairs = pd.pairs_from_neighbors(

@@ -1,4 +1,4 @@
-// Whole-schedule joint pose + deformation LM in one launch.
+// Whole-schedule joint pose + deformation LM in one cluster launch.
 //
 // Replaces: nrslam_tpu/solver/pose_deformation_pallas.py::_joint_kernel
 // (wrapper pose_deformation_optimization_pallas). Same schedule and terms
@@ -11,91 +11,80 @@
 // springs never do. Outputs the pose, the flows and the final per-point chi2.
 //
 // What bounds it on an H100: the serial LM / CG chain (~200 Hessian-vector
-// products per call, each followed by block-wide dot products), not bytes:
-// at P = 768 and E = 5376 the whole per-point and per-edge state is < 1 MB
-// and stays in L2. The TPU kernel's one-hot selector matmuls (bf16 resident
-// or int8 streamed, hi/lo split) exist only because TPU gathers are slow;
-// here edges gather flows[i] and flows[j] directly, all in float32.
+// products per call, each followed by two cluster-wide dot products), not
+// bytes or FLOPs: at P = 768 and E = 5376 a trip is ~0.3 MFLOP and the whole
+// state < 1 MB. The TPU kernel's one-hot selector matmuls exist only because
+// TPU gathers are slow; here edges gather flows directly, all in float32.
 //
-// Design: one block of 512 threads runs the whole schedule with no host
-// round trip. Per-point and per-edge linearization state lives in a global
-// scratch buffer the wrapper allocates (two copies, current and trial,
-// swapped by index on acceptance instead of copied). Edge terms are
-// evaluated per edge; the scatter back to points (gradient, Hv and the
-// Jacobi diagonal) walks a CSR of each point's incident edges, built by the
-// wrapper with a stable sort, so every point sums its edges in a fixed
-// order: deterministic, no atomics. Dot products are block reductions; the
-// 6x6 pose block (inverse, retraction, lambda control) is done by thread 0.
+// Design (cluster_pcg.cuh): one thread block cluster of kBlocks = 8 blocks
+// of 256 threads. Block r owns a contiguous range of points and their
+// incident edge-ends; the current linearisation of those (pose and flow
+// Jacobians, IRLS weights, per-edge-end damper/spring terms next to each
+// edge's constants), the block's CG vectors and full copies of the search
+// direction, of z and of the flows live in shared memory (up to P ~ 8.7k
+// at the H100's 227 KB; beyond, what does not fit lives in the block's
+// global region, SmemPlan). The Hessian-vector product is fused: the two
+// threads owning point p each recompute half of its incident edges' terms
+// from the stored (ws, w_p, a) and p_i - p_j, in the CSR's order, and add
+// the halves, so no per-edge buffer or barrier is needed. Where the full
+// copies are in shared memory, owners push their z slice into every
+// block's copy before the reduction that yields beta, else every block
+// pulls all slices after it; either way every block forms p = z + beta p
+// itself. Dot products are cluster reductions in rank order (no atomics:
+// every block computes the same alpha, beta and 6x6 pose update, and every
+// call gives the same bits). The trial linearisation of an LM step goes to
+// global memory and is copied into the current one when the step is
+// accepted.
 
-#include "common.cuh"
+#include "cluster_pcg.cuh"
 
 namespace nrslam {
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kBlocks = 8;     // blocks of the cluster
 constexpr float kTh2Dof = 5.99f;
 constexpr float kTh3Dof = 0.584f;
 constexpr float kSpringK = 1.1f;
 constexpr float kLmTau = 1e-5f;
 constexpr float kCgTol = 1e-8f;
+constexpr int kSysSums = 28;   // 21 upper H_pose, 6 g_pose, 1 chi2
+constexpr int kHvSums = 7;     // 6 pose Hv parts + p . Hp
+constexpr int kOwnFloats = 53; // per owned point: lin 28, CG 21, flows 3, mask 1
+constexpr int kRecFloats = 13; // per edge-end, see Own
+constexpr int kHdr = 16;       // scratch header (ints): work counters
 
-// Float offsets of one linearization copy inside the scratch buffer.
+enum Mode { kStep = 0, kRelevel = 1, kFinal = 2 };
+
+// One linearisation of a block's points and edge-ends. Point arrays are
+// indexed by the local point lp; es.at(kl)[0..5) = (ws, w_p, a0, a1, a2).
 struct Lin {
-  float* Jp;     // [P][12] pose Jacobian rows u (0..5) and v (6..11)
-  float* Jf;     // [P][6]  flow Jacobian rows u (0..2) and v (3..5)
-  float* wr;     // [P]     IRLS reprojection weight (info * huber * mask)
-  float* chi2r;  // [P]     reprojection chi2
-  float* gf;     // [P][3]  flow gradient
-  float* D;      // [P][6]  flow diagonal blocks (00 01 02 11 12 22)
-  float* es;     // [E][6]  ws, w_p, a0, a1, a2, chi2_s
+  float* Jp;  // [own][12] pose Jacobian rows u (0..5) and v (6..11)
+  float* Jf;  // [own][6]  flow Jacobian rows u (0..2) and v (3..5)
+  float* wr;  // [own]     IRLS reprojection weight (info * huber * mask)
+  float* gf;  // [own][3]  flow gradient
+  float* D;   // [own][6]  flow diagonal blocks (00 01 02 11 12 22)
+  EndRecs es;
 };
 
-struct Scratch {
-  Lin lin[2];
-  float* drest;  // [E][3] rest-position edge differences
-  float* eg;     // [E][9] per-edge gradient (3) + D pack (6), or Hv (3)
-  float* flows[2];
-  float* x;      // [P][3] CG vectors
+// Shared state of the owned points. cur.es records also hold the edge's
+// constants: [5] the re-levelled damper mask, [6] the other endpoint as int
+// bits (o when this point is the edge's i, -o - 1 when it is j), [7] w,
+// [8] d0, [9] the base mask, [10..13) rest_i - rest_j.
+struct Own {
+  Lin cur;
+  float* minv;   // [own][9] inverted flow blocks
+  float* x;      // [own][3] CG vectors
   float* r;
-  float* p;
-  float* z;
   float* hp;
-  float* minv;   // [P][9] inverted flow blocks
-  float* pmask;  // [P] live point mask of the round
-  float* smask;  // [E] re-levelled spatial mask
+  float* z;      // [own][3] preconditioned residual, pushed to every block
+  float* fo;     // [own][3] trial flows, pulled by every block
+  float* pmask;  // [own] point mask of the round
+  float* p;      // [P][3] full copy of the search direction
+  float* zf;     // [P][3] full copy of z, written by the owners' pushes
+                 // (used only when the full copies are in shared memory)
+  float* fl[2];  // [P][3] full copies of the flows (accepted / trial)
 };
-
-__host__ __device__ inline long scratch_floats(int P, int E) {
-  return 2L * (29L * P + 6L * E) + 3L * E + 9L * E + 6L * P + 15L * P +
-         9L * P + P + E;
-}
-
-__device__ inline Scratch carve(float* base, int P, int E) {
-  Scratch s;
-  float* c = base;
-  for (int k = 0; k < 2; ++k) {
-    s.lin[k].Jp = c; c += 12L * P;
-    s.lin[k].Jf = c; c += 6L * P;
-    s.lin[k].wr = c; c += P;
-    s.lin[k].chi2r = c; c += P;
-    s.lin[k].gf = c; c += 3L * P;
-    s.lin[k].D = c; c += 6L * P;
-    s.lin[k].es = c; c += 6L * E;
-  }
-  s.drest = c; c += 3L * E;
-  s.eg = c; c += 9L * E;
-  s.flows[0] = c; c += 3L * P;
-  s.flows[1] = c; c += 3L * P;
-  s.x = c; c += 3L * P;
-  s.r = c; c += 3L * P;
-  s.p = c; c += 3L * P;
-  s.z = c; c += 3L * P;
-  s.hp = c; c += 3L * P;
-  s.minv = c; c += 9L * P;
-  s.pmask = c; c += P;
-  s.smask = c; c += E;
-  return s;
-}
 
 struct Inputs {
   const float* cam;  // [8]
@@ -107,164 +96,213 @@ struct Inputs {
   const float* ew;   // [E] RBF weight
   const float* ed0;  // [E] rest distance (clamped >= 1e-12)
   const float* ebase;// [E] base pair mask
+  const int* pt_off;    // [kBlocks + 1] owned point ranges
   const int* inc_ptr;   // [P + 1]
-  const int* inc_edge;  // incident edges of each point, fixed order
+  const int* inc_edge;  // incident live edges of each point, edge order
   const float* inc_sign;// +1 when the point is the edge's i, -1 for j
-  int P, E, kind;
+  int P, E, n_ends, kind;
   float info_r, info_s, info_p;  // params[15..17], loaded in the kernel
 };
 
-// Shared per-linearization scalars (two copies, indexed like Scratch::lin).
 struct SharedLin {
   float H[36];
   float g[6];
   float chi2;
 };
 
-constexpr int kSysSums = 28;  // 21 upper H_pose, 6 g_pose, 1 chi2
+struct PoseCG {  // written by threads 0..5 only
+  float Hinv[36];
+  float xp[6], rp[6], zp[6], pp[6];
+};
 
-// Linearize at (q, t, flows) into lin / slin. point_mask gates the
-// reprojection terms, smask the dampers (springs always use the base mask).
-__device__ void linearize(const Inputs& in, Scratch& s, const float* q,
-                          const float* t, const float* flows,
-                          const float* point_mask, const float* smask,
-                          const Lin& lin, SharedLin* slin, float* red,
-                          float* tot) {
+// Global scratch: header, the blocks' regions for owned state that does not
+// fit in shared memory, the trial linearisation, edge-end records beyond
+// the shared capacity, the blocks' full copies that do not fit.
+__host__ __device__ inline long scratch_floats(int P, int n_ends) {
+  return kHdr + static_cast<long>(kBlocks) * kOwnFloats * own_max(P, kBlocks)
+         + 28L * P + 5L * n_ends + kRecFloats * n_ends
+         + kBlocks * 4L * pad4(3L * P);
+}
+
+__device__ inline void carve(float* sm, float* scratch, const Inputs& in,
+                             const Part& c, const SmemPlan& pl, Own& o,
+                             Lin& trial) {
+  const long P = in.P, n = in.n_ends, own = pl.own;
+  float* gs = scratch + kHdr;
+  float* gown = gs; gs += kBlocks * kOwnFloats * own;
+  float* s = pl.own_sh ? sm : gown + c.rank * kOwnFloats * own;
+  o.cur.Jp = s; s += 12 * own;
+  o.cur.Jf = s; s += 6 * own;
+  o.cur.wr = s; s += own;
+  o.cur.gf = s; s += 3 * own;
+  o.cur.D = s; s += 6 * own;
+  o.minv = s; s += 9 * own;
+  o.x = s; s += 3 * own;
+  o.r = s; s += 3 * own;
+  o.hp = s; s += 3 * own;
+  o.z = s; s += 3 * own;
+  o.fo = s; s += 3 * own;
+  o.pmask = s; s += own;
+  float* sh = pl.own_sh ? s : sm;  // shared memory after the owned state
+  float* tJp = gs; gs += 12 * P;
+  float* tJf = gs; gs += 6 * P;
+  float* twr = gs; gs += P;
+  float* tgf = gs; gs += 3 * P;
+  float* tD = gs; gs += 6 * P;
+  float* tes = gs; gs += 5 * n;
+  float* ovf = gs; gs += kRecFloats * n;
+  const long P3 = pad4(3 * P);  // keeps every copy 16-byte aligned
+  float* full = pl.full_sh ? sh : gs + c.rank * 4 * P3;
+  o.p = full;
+  o.zf = full + P3;
+  o.fl[0] = full + 2 * P3;
+  o.fl[1] = full + 3 * P3;
+  sh += pl.full_sh ? 4 * P3 : 0;
+  o.cur.es = EndRecs{sh, ovf + static_cast<long>(kRecFloats) * c.k0, pl.cap,
+                     kRecFloats};
+  trial.Jp = tJp + 12L * c.p0;
+  trial.Jf = tJf + 6L * c.p0;
+  trial.wr = twr + c.p0;
+  trial.gf = tgf + 3L * c.p0;
+  trial.D = tD + 6L * c.p0;
+  trial.es = EndRecs{nullptr, tes + 5L * c.k0, 0, 5};
+}
+
+// Linearise at (q, t, flows) into `out` and slin. kStep uses the round's
+// point and damper masks; kRelevel and kFinal the full base masks, and
+// kRelevel then re-levels the masks from the chi2s, kFinal writes the
+// per-point chi2 to out_chi2. Springs always use the base mask.
+__device__ void linearize(const Inputs& in, const Part& c, Own& o,
+                          const Lin& out, const float* q, const float* t,
+                          const float* flows, int mode, SharedLin* slin,
+                          Reducer<kSysSums>& R, int& slot, float* out_chi2) {
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int own = c.p1 - c.p0;
   float acc[kSysSums];
 #pragma unroll
   for (int k = 0; k < kSysSums; ++k) acc[k] = 0.0f;
-
-  // Edge phase.
-  for (int e = tid; e < in.E; e += nt) {
-    float* es = lin.es + 6L * e;
-    float* eg = s.eg + 9L * e;
-    const float pm = in.ebase[e];
-    if (pm == 0.0f) {
-      for (int k = 0; k < 6; ++k) es[k] = 0.0f;
-      continue;
+  float Rm[9];
+  quat_to_matrix(q, Rm);
+  for (int base = 0; base < own; base += nt / 2) {
+    const int lp = base + (tid >> 1), half = tid & 1;
+    const bool active = lp < own;
+    const int p = c.p0 + (active ? lp : 0);
+    // Incident edges in edge order, the first half summed by the even
+    // thread of the pair and the second by the odd one, the halves added in
+    // that order. Each edge's terms are formed in its (i, j) orientation at
+    // both endpoints, so both ends agree bit for bit.
+    float gsum[3] = {0.0f, 0.0f, 0.0f}, dsum[6] = {0, 0, 0, 0, 0, 0};
+    if (active) {
+      const int kb = in.inc_ptr[p] - c.k0, ke = in.inc_ptr[p + 1] - c.k0;
+      const int mid = kb + (ke - kb + 1) / 2;
+      for (int kl = half ? mid : kb; kl < (half ? ke : mid); ++kl) {
+        float* rec = o.cur.es.at(kl);
+        const int code = __float_as_int(rec[6]);
+        const bool iend = code >= 0;
+        const int other = iend ? code : -code - 1;
+        const int i = iend ? p : other, j = iend ? other : p;
+        const float sg = iend ? 1.0f : -1.0f;
+        const float df0 = flows[3 * i] - flows[3 * j];
+        const float df1 = flows[3 * i + 1] - flows[3 * j + 1];
+        const float df2 = flows[3 * i + 2] - flows[3 * j + 2];
+        const float w = rec[7], d0 = rec[8], pm = rec[9];
+        const float sm = mode == kStep ? rec[5] : pm;
+        const float chi2_s = in.info_s * (w * w) * (df0 * df0 + df1 * df1 + df2 * df2);
+        const float w_s = in.info_s * huber_w(chi2_s, kTh3Dof) * sm;
+        const float diff0 = rec[10] + df0;
+        const float diff1 = rec[11] + df1;
+        const float diff2 = rec[12] + df2;
+        const float dist = sqrtf(diff0 * diff0 + diff1 * diff1 + diff2 * diff2);
+        const float e_p = kSpringK * (dist - d0) / d0;
+        const float chi2_p = in.info_p * e_p * e_p;
+        const float w_p = in.info_p * huber_w(chi2_p, kTh3Dof) * pm;
+        if (iend)
+          acc[27] += huber_rho(chi2_s, kTh3Dof) * sm + huber_rho(chi2_p, kTh3Dof) * pm;
+        const float ws = w * w * w_s;
+        const float kd = kSpringK / d0;
+        const float inv_dist = 1.0f / fmaxf(dist, 1e-12f);
+        const float a0 = kd * diff0 * inv_dist;
+        const float a1 = kd * diff1 * inv_dist;
+        const float a2 = kd * diff2 * inv_dist;
+        const float wpe = w_p * e_p;
+        gsum[0] += sg * (ws * df0 + wpe * a0);
+        gsum[1] += sg * (ws * df1 + wpe * a1);
+        gsum[2] += sg * (ws * df2 + wpe * a2);
+        dsum[0] += ws + w_p * a0 * a0;
+        dsum[1] += w_p * a0 * a1;
+        dsum[2] += w_p * a0 * a2;
+        dsum[3] += ws + w_p * a1 * a1;
+        dsum[4] += w_p * a1 * a2;
+        dsum[5] += ws + w_p * a2 * a2;
+        float* es = out.es.at(kl);
+        es[0] = ws; es[1] = w_p; es[2] = a0; es[3] = a1; es[4] = a2;
+        if (mode == kRelevel) rec[5] = chi2_s <= kTh3Dof ? pm : 0.0f;
+      }
     }
-    const int i = in.ei[e], j = in.ej[e];
-    const float df0 = flows[3 * i] - flows[3 * j];
-    const float df1 = flows[3 * i + 1] - flows[3 * j + 1];
-    const float df2 = flows[3 * i + 2] - flows[3 * j + 2];
-    const float w = in.ew[e], d0 = in.ed0[e], sm = smask[e];
-    const float chi2_s = in.info_s * (w * w) * (df0 * df0 + df1 * df1 + df2 * df2);
-    const float w_s = in.info_s * huber_w(chi2_s, kTh3Dof) * sm;
-    const float diff0 = s.drest[3 * e] + df0;
-    const float diff1 = s.drest[3 * e + 1] + df1;
-    const float diff2 = s.drest[3 * e + 2] + df2;
-    const float dist = sqrtf(diff0 * diff0 + diff1 * diff1 + diff2 * diff2);
-    const float e_p = kSpringK * (dist - d0) / d0;
-    const float chi2_p = in.info_p * e_p * e_p;
-    const float w_p = in.info_p * huber_w(chi2_p, kTh3Dof) * pm;
-    acc[27] += huber_rho(chi2_s, kTh3Dof) * sm + huber_rho(chi2_p, kTh3Dof) * pm;
-    const float ws = w * w * w_s;
-    const float kd = kSpringK / d0;
-    const float inv_dist = 1.0f / fmaxf(dist, 1e-12f);
-    const float a0 = kd * diff0 * inv_dist;
-    const float a1 = kd * diff1 * inv_dist;
-    const float a2 = kd * diff2 * inv_dist;
-    const float wpe = w_p * e_p;
-    eg[0] = ws * df0 + wpe * a0;
-    eg[1] = ws * df1 + wpe * a1;
-    eg[2] = ws * df2 + wpe * a2;
-    eg[3] = ws + w_p * a0 * a0;
-    eg[4] = w_p * a0 * a1;
-    eg[5] = w_p * a0 * a2;
-    eg[6] = ws + w_p * a1 * a1;
-    eg[7] = w_p * a1 * a2;
-    eg[8] = ws + w_p * a2 * a2;
-    es[0] = ws; es[1] = w_p; es[2] = a0; es[3] = a1; es[4] = a2;
-    es[5] = chi2_s;
-  }
-  __syncthreads();
+    for (int d = 0; d < 3; ++d) gsum[d] = pair_sum(gsum[d]);
+    for (int d = 0; d < 6; ++d) dsum[d] = pair_sum(dsum[d]);
+    if (!active || half) continue;
 
-  // Point phase.
-  float R[9];
-  quat_to_matrix(q, R);
-  for (int p = tid; p < in.P; p += nt) {
     const float x = in.rest[3 * p] + flows[3 * p];
     const float y = in.rest[3 * p + 1] + flows[3 * p + 1];
     const float z = in.rest[3 * p + 2] + flows[3 * p + 2];
-    const float xc = R[0] * x + R[1] * y + R[2] * z + t[0];
-    const float yc = R[3] * x + R[4] * y + R[5] * z + t[1];
-    const float zc = R[6] * x + R[7] * y + R[8] * z + t[2];
+    const float xc = Rm[0] * x + Rm[1] * y + Rm[2] * z + t[0];
+    const float yc = Rm[3] * x + Rm[4] * y + Rm[5] * z + t[1];
+    const float zc = Rm[6] * x + Rm[7] * y + Rm[8] * z + t[2];
     float pu, pv, J[6];
     project_with_jacobian(in.kind, in.cam, xc, yc, zc, &pu, &pv, J);
     const float eu = in.obs[2 * p] - pu, ev = in.obs[2 * p + 1] - pv;
     const float chi2_r = in.info_r * (eu * eu + ev * ev);
-    const float m = point_mask[p];
+    const float m = mode == kStep ? o.pmask[lp] : in.pmask[p];
     float Ju[6], Jv[6], Jfu[3], Jfv[3], w_r = 0.0f;
     if (m != 0.0f) {
       w_r = in.info_r * huber_w(chi2_r, kTh2Dof) * m;
       pose_jacobian(J, xc, yc, zc, Ju, Jv);
-      for (int c = 0; c < 3; ++c) {
-        Jfu[c] = -(J[0] * R[c] + J[1] * R[3 + c] + J[2] * R[6 + c]);
-        Jfv[c] = -(J[3] * R[c] + J[4] * R[3 + c] + J[5] * R[6 + c]);
+      for (int d = 0; d < 3; ++d) {
+        Jfu[d] = -(J[0] * Rm[d] + J[1] * Rm[3 + d] + J[2] * Rm[6 + d]);
+        Jfv[d] = -(J[3] * Rm[d] + J[4] * Rm[3 + d] + J[5] * Rm[6 + d]);
       }
       acc[27] += huber_rho(chi2_r, kTh2Dof) * m;
     } else {
-      for (int c = 0; c < 6; ++c) Ju[c] = Jv[c] = 0.0f;
-      for (int c = 0; c < 3; ++c) Jfu[c] = Jfv[c] = 0.0f;
+      for (int d = 0; d < 6; ++d) Ju[d] = Jv[d] = 0.0f;
+      for (int d = 0; d < 3; ++d) Jfu[d] = Jfv[d] = 0.0f;
     }
-    float gsum[3] = {0.0f, 0.0f, 0.0f}, dsum[6] = {0, 0, 0, 0, 0, 0};
-    for (int k = in.inc_ptr[p]; k < in.inc_ptr[p + 1]; ++k) {
-      const float* eg = s.eg + 9L * in.inc_edge[k];
-      const float sg = in.inc_sign[k];
-      for (int c = 0; c < 3; ++c) gsum[c] += sg * eg[c];
-      for (int c = 0; c < 6; ++c) dsum[c] += eg[3 + c];
-    }
-    float* Jp = lin.Jp + 12L * p;
-    float* Jf = lin.Jf + 6L * p;
-    for (int c = 0; c < 6; ++c) { Jp[c] = Ju[c]; Jp[6 + c] = Jv[c]; }
-    for (int c = 0; c < 3; ++c) { Jf[c] = Jfu[c]; Jf[3 + c] = Jfv[c]; }
-    lin.wr[p] = w_r;
-    lin.chi2r[p] = chi2_r;
-    for (int c = 0; c < 3; ++c)
-      lin.gf[3 * p + c] = w_r * (Jfu[c] * eu + Jfv[c] * ev) + gsum[c];
+
+    float* Jp = out.Jp + 12L * lp;
+    float* Jf = out.Jf + 6L * lp;
+    for (int d = 0; d < 6; ++d) { Jp[d] = Ju[d]; Jp[6 + d] = Jv[d]; }
+    for (int d = 0; d < 3; ++d) { Jf[d] = Jfu[d]; Jf[3 + d] = Jfv[d]; }
+    out.wr[lp] = w_r;
+    for (int d = 0; d < 3; ++d)
+      out.gf[3 * lp + d] = w_r * (Jfu[d] * eu + Jfv[d] * ev) + gsum[d];
     const int ia[6] = {0, 0, 0, 1, 1, 2}, ib[6] = {0, 1, 2, 1, 2, 2};
-    for (int c = 0; c < 6; ++c)
-      lin.D[6 * p + c] = w_r * (Jfu[ia[c]] * Jfu[ib[c]] + Jfv[ia[c]] * Jfv[ib[c]])
-                         + dsum[c];
-    int k = 0;
+    for (int d = 0; d < 6; ++d)
+      out.D[6 * lp + d] = w_r * (Jfu[ia[d]] * Jfu[ib[d]] + Jfv[ia[d]] * Jfv[ib[d]])
+                          + dsum[d];
+    if (mode == kRelevel) o.pmask[lp] = chi2_r <= kTh2Dof ? in.pmask[p] : 0.0f;
+    if (mode == kFinal) out_chi2[p] = chi2_r;
+    int n = 0;
 #pragma unroll
     for (int a = 0; a < 6; ++a)
 #pragma unroll
-      for (int b = a; b < 6; ++b) acc[k++] += w_r * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
+      for (int b = a; b < 6; ++b) acc[n++] += w_r * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
 #pragma unroll
     for (int a = 0; a < 6; ++a) acc[21 + a] += w_r * (Ju[a] * eu + Jv[a] * ev);
   }
-  block_sum<kSysSums>(acc, red, tot);
+  warp_store(acc, warp_row(R));
+  cluster_total(R, kSysSums, slot);
   if (tid == 0) {
-    int k = 0;
+    int n = 0;
     for (int a = 0; a < 6; ++a)
       for (int b = a; b < 6; ++b) {
-        slin->H[a * 6 + b] = tot[k];
-        slin->H[b * 6 + a] = tot[k];
-        ++k;
+        slin->H[a * 6 + b] = R.tot[n];
+        slin->H[b * 6 + a] = R.tot[n];
+        ++n;
       }
-    for (int a = 0; a < 6; ++a) slin->g[a] = tot[21 + a];
-    slin->chi2 = tot[27];
+    for (int a = 0; a < 6; ++a) slin->g[a] = R.tot[21 + a];
+    slin->chi2 = R.tot[27];
   }
   __syncthreads();
-}
-
-// Shared state of the PCG's pose part (6-vectors) and scalars.
-struct SharedCG {
-  float Hinv[36];
-  float xp[6], rp[6], zp[6], pp[6], hpp[6];
-  float rz, b2, alpha, beta;
-  int done;
-};
-
-__device__ inline void mat6_vec(const float M[36], const float v[6],
-                                float o[6]) {
-  for (int i = 0; i < 6; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < 6; ++j) s += M[i * 6 + j] * v[j];
-    o[i] = s;
-  }
 }
 
 __device__ inline void apply_minv(const float* M, const float* r, float* z) {
@@ -272,305 +310,380 @@ __device__ inline void apply_minv(const float* M, const float* r, float* z) {
     z[i] = M[3 * i] * r[0] + M[3 * i + 1] * r[1] + M[3 * i + 2] * r[2];
 }
 
-// Fixed-trip block-Jacobi PCG for (H + lam I) dx = -g at lin; the result is
-// cg.xp (pose) and s.x (flows). Exits once converged (x no longer changes).
-__device__ void pcg(const Inputs& in, Scratch& s, const Lin& lin,
-                    const SharedLin* slin, float lam, int iters,
-                    SharedCG* cg, float* red, float* tot) {
+// Fixed-trip block-Jacobi PCG for (H + lam I) dx = -g at the current
+// linearisation; the result is pose.xp (pose) and o.x (own flows). Exits once
+// converged (x no longer changes). Returns through `trips` the Hessian-
+// vector products it ran. z reaches every block by push when the full
+// copies are in shared memory (`full_sh`), else by gather.
+__device__ void pcg(const Inputs& in, const Part& c, Own& o,
+                    const SharedLin* slin, float lam, int iters, PoseCG* pc,
+                    Reducer<kSysSums>& R, int& slot, int& trips,
+                    const Slices& sl, bool full_sh) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  if (tid == 0) inv6(slin->H, lam, cg->Hinv);
-  float acc2[2] = {0.0f, 0.0f}, acc7[7];
-  for (int p = tid; p < in.P; p += nt) {
-    const float* D = lin.D + 6 * p;
+  const int own = c.p1 - c.p0, P = in.P;
+  if (tid == 0) inv6(slin->H, lam, pc->Hinv);
+  float acc2[2] = {0.0f, 0.0f};
+  for (int lp = tid; lp < own; lp += nt) {
+    const float* D = o.cur.D + 6 * lp;
     const float m[9] = {D[0] + lam, D[1], D[2], D[1], D[3] + lam, D[4],
                         D[2], D[4], D[5] + lam};
-    float* mi = s.minv + 9 * p;
+    float* mi = o.minv + 9 * lp;
     inv3(m, mi);
     float r[3], z[3];
-    for (int c = 0; c < 3; ++c) {
-      r[c] = -lin.gf[3 * p + c];
-      s.x[3 * p + c] = 0.0f;
-      s.r[3 * p + c] = r[c];
+    for (int d = 0; d < 3; ++d) {
+      r[d] = -o.cur.gf[3 * lp + d];
+      o.x[3 * lp + d] = 0.0f;
+      o.r[3 * lp + d] = r[d];
     }
     apply_minv(mi, r, z);
-    for (int c = 0; c < 3; ++c) {
-      s.z[3 * p + c] = z[c];
-      s.p[3 * p + c] = z[c];
-      acc2[0] += r[c] * z[c];
-      acc2[1] += r[c] * r[c];
+    for (int d = 0; d < 3; ++d) {
+      o.z[3 * lp + d] = z[d];
+      acc2[0] += r[d] * z[d];
+      acc2[1] += r[d] * r[d];
     }
   }
-  block_sum<2>(acc2, red, tot);
-  if (tid == 0) {
-    float rz = 0.0f, b2 = 0.0f;
-    for (int c = 0; c < 6; ++c) cg->rp[c] = -slin->g[c];
-    mat6_vec(cg->Hinv, cg->rp, cg->zp);
-    for (int c = 0; c < 6; ++c) {
-      cg->xp[c] = 0.0f;
-      cg->pp[c] = cg->zp[c];
-      rz += cg->rp[c] * cg->zp[c];
-      b2 += cg->rp[c] * cg->rp[c];
-    }
-    cg->rz = rz + tot[0];
-    cg->b2 = b2 + tot[1];
-    cg->done = 0;
+  warp_store(acc2, warp_row(R));
+  cluster_total(R, 2, slot);
+  const float rz0 = R.tot[0], b20 = R.tot[1];
+  gather(o.p, o.z, c, sl, false, 0.0f);  // p = z
+  if (tid < 6) {
+    float s = 0.0f;
+    for (int j = 0; j < 6; ++j) s += pc->Hinv[tid * 6 + j] * (-slin->g[j]);
+    pc->rp[tid] = -slin->g[tid];
+    pc->zp[tid] = s;
+    pc->xp[tid] = 0.0f;
+    pc->pp[tid] = s;
   }
   __syncthreads();
+  float rz = 0.0f, b2 = 0.0f;
+  for (int d = 0; d < 6; ++d) {
+    rz += pc->rp[d] * pc->zp[d];
+    b2 += pc->rp[d] * pc->rp[d];
+  }
+  rz = rz + rz0;
+  b2 = b2 + b20;
 
   for (int it = 0; it < iters; ++it) {
-    // Hv, edge part: ev = ws dv + w_p (a . dv) a with dv = p_i - p_j.
-    for (int e = tid; e < in.E; e += nt) {
-      if (in.ebase[e] == 0.0f) continue;
-      const float* es = lin.es + 6L * e;
-      const int i = in.ei[e], j = in.ej[e];
-      const float dv0 = s.p[3 * i] - s.p[3 * j];
-      const float dv1 = s.p[3 * i + 1] - s.p[3 * j + 1];
-      const float dv2 = s.p[3 * i + 2] - s.p[3 * j + 2];
-      const float wad = es[1] * (es[2] * dv0 + es[3] * dv1 + es[4] * dv2);
-      float* ev = s.eg + 9L * e;
-      ev[0] = es[0] * dv0 + wad * es[2];
-      ev[1] = es[0] * dv1 + wad * es[3];
-      ev[2] = es[0] * dv2 + wad * es[4];
-    }
-    __syncthreads();
-    // Hv, point part + pose partials + p . Hp.
-    for (int c = 0; c < 7; ++c) acc7[c] = 0.0f;
-    for (int p = tid; p < in.P; p += nt) {
-      const float* Jp = lin.Jp + 12L * p;
-      const float* Jf = lin.Jf + 6L * p;
-      const float pf0 = s.p[3 * p], pf1 = s.p[3 * p + 1], pf2 = s.p[3 * p + 2];
-      float ru = Jf[0] * pf0 + Jf[1] * pf1 + Jf[2] * pf2;
-      float rv = Jf[3] * pf0 + Jf[4] * pf1 + Jf[5] * pf2;
-      for (int c = 0; c < 6; ++c) {
-        ru += Jp[c] * cg->pp[c];
-        rv += Jp[6 + c] * cg->pp[c];
-      }
-      const float w = lin.wr[p];
+    ++trips;
+    // Fused Hv: reprojection part, incident edge terms
+    // ws dv + w_p (a . dv) a with dv = p_i - p_j, pose partials, p . Hp.
+    float acc7[kHvSums];
+#pragma unroll
+    for (int d = 0; d < kHvSums; ++d) acc7[d] = 0.0f;
+    const float* pf_all = o.p;
+    for (int base = 0; base < own; base += nt / 2) {
+      const int lp = base + (tid >> 1), half = tid & 1;
+      const bool active = lp < own;
+      const int p = c.p0 + (active ? lp : 0);
+      // Incident edge terms, the halves of the point's edge-ends summed by
+      // the two threads of a pair, as in linearize.
       float esum[3] = {0.0f, 0.0f, 0.0f};
-      for (int k = in.inc_ptr[p]; k < in.inc_ptr[p + 1]; ++k) {
-        const float* ev = s.eg + 9L * in.inc_edge[k];
-        const float sg = in.inc_sign[k];
-        for (int c = 0; c < 3; ++c) esum[c] += sg * ev[c];
+      if (active) {
+        const int kb = in.inc_ptr[p] - c.k0, ke = in.inc_ptr[p + 1] - c.k0;
+        const int mid = kb + (ke - kb + 1) / 2;
+        for (int kl = half ? mid : kb; kl < (half ? ke : mid); ++kl) {
+          const float* es = o.cur.es.at(kl);
+          const int code = __float_as_int(es[6]);
+          const bool iend = code >= 0;
+          const int other = iend ? code : -code - 1;
+          const int i = iend ? p : other, j = iend ? other : p;
+          const float dv0 = pf_all[3 * i] - pf_all[3 * j];
+          const float dv1 = pf_all[3 * i + 1] - pf_all[3 * j + 1];
+          const float dv2 = pf_all[3 * i + 2] - pf_all[3 * j + 2];
+          const float wad = es[1] * (es[2] * dv0 + es[3] * dv1 + es[4] * dv2);
+          const float sg = iend ? 1.0f : -1.0f;
+          esum[0] += sg * (es[0] * dv0 + wad * es[2]);
+          esum[1] += sg * (es[0] * dv1 + wad * es[3]);
+          esum[2] += sg * (es[0] * dv2 + wad * es[4]);
+        }
       }
-      const float pf[3] = {pf0, pf1, pf2};
-      for (int c = 0; c < 3; ++c) {
-        const float h = w * (Jf[c] * ru + Jf[3 + c] * rv) + esum[c] + lam * pf[c];
-        s.hp[3 * p + c] = h;
-        acc7[6] += pf[c] * h;
+      for (int d = 0; d < 3; ++d) esum[d] = pair_sum(esum[d]);
+      if (!active || half) continue;
+      const float* Jp = o.cur.Jp + 12 * lp;
+      const float* Jf = o.cur.Jf + 6 * lp;
+      const float pf[3] = {pf_all[3 * p], pf_all[3 * p + 1], pf_all[3 * p + 2]};
+      float ru = Jf[0] * pf[0] + Jf[1] * pf[1] + Jf[2] * pf[2];
+      float rv = Jf[3] * pf[0] + Jf[4] * pf[1] + Jf[5] * pf[2];
+      for (int d = 0; d < 6; ++d) {
+        ru += Jp[d] * pc->pp[d];
+        rv += Jp[6 + d] * pc->pp[d];
       }
-      for (int c = 0; c < 6; ++c) acc7[c] += w * (Jp[c] * ru + Jp[6 + c] * rv);
+      const float w = o.cur.wr[lp];
+      for (int d = 0; d < 3; ++d) {
+        const float h = w * (Jf[d] * ru + Jf[3 + d] * rv) + esum[d] + lam * pf[d];
+        o.hp[3 * lp + d] = h;
+        acc7[6] += pf[d] * h;
+      }
+      for (int d = 0; d < 6; ++d) acc7[d] += w * (Jp[d] * ru + Jp[6 + d] * rv);
     }
-    block_sum<7>(acc7, red, tot);
-    if (tid == 0) {
-      float denom = 0.0f;
-      for (int c = 0; c < 6; ++c) {
-        cg->hpp[c] = tot[c] + lam * cg->pp[c];
-        denom += cg->pp[c] * cg->hpp[c];
-      }
-      denom += tot[6];
-      const float alpha = fabsf(denom) > 0.0f ? cg->rz / denom : 0.0f;
-      cg->alpha = alpha;
-      for (int c = 0; c < 6; ++c) {
-        cg->xp[c] += alpha * cg->pp[c];
-        cg->rp[c] -= alpha * cg->hpp[c];
-      }
-      mat6_vec(cg->Hinv, cg->rp, cg->zp);
+    warp_store(acc7, warp_row(R));
+    cluster_total(R, kHvSums, slot);
+
+    // alpha and the pose update, the same bits in every thread and block.
+    float hpp[6], denom = 0.0f;
+    for (int d = 0; d < 6; ++d) {
+      hpp[d] = R.tot[d] + lam * pc->pp[d];
+      denom += pc->pp[d] * hpp[d];
+    }
+    denom += R.tot[6];
+    const float alpha = fabsf(denom) > 0.0f ? rz / denom : 0.0f;
+    float xn = 0.0f, rn = 0.0f, zn = 0.0f;
+    if (tid < 6) {
+      float rv6[6];
+      for (int d = 0; d < 6; ++d) rv6[d] = pc->rp[d] - alpha * hpp[d];
+      for (int j = 0; j < 6; ++j) zn += pc->Hinv[tid * 6 + j] * rv6[j];
+      xn = pc->xp[tid] + alpha * pc->pp[tid];
+      rn = rv6[tid];
     }
     __syncthreads();
-    const float alpha = cg->alpha;
+    if (tid < 6) {
+      pc->xp[tid] = xn;
+      pc->rp[tid] = rn;
+      pc->zp[tid] = zn;
+    }
+
     acc2[0] = acc2[1] = 0.0f;
-    for (int p = tid; p < in.P; p += nt) {
+    for (int lp = tid; lp < own; lp += nt) {
+      const int p = c.p0 + lp;
       float r[3], z[3];
-      for (int c = 0; c < 3; ++c) {
-        s.x[3 * p + c] += alpha * s.p[3 * p + c];
-        r[c] = s.r[3 * p + c] - alpha * s.hp[3 * p + c];
-        s.r[3 * p + c] = r[c];
+      for (int d = 0; d < 3; ++d) {
+        o.x[3 * lp + d] += alpha * pf_all[3 * p + d];
+        r[d] = o.r[3 * lp + d] - alpha * o.hp[3 * lp + d];
+        o.r[3 * lp + d] = r[d];
       }
-      apply_minv(s.minv + 9 * p, r, z);
-      for (int c = 0; c < 3; ++c) {
-        s.z[3 * p + c] = z[c];
-        acc2[0] += r[c] * z[c];
-        acc2[1] += r[c] * r[c];
+      apply_minv(o.minv + 9 * lp, r, z);
+      for (int d = 0; d < 3; ++d) {
+        o.z[3 * lp + d] = z[d];
+        acc2[0] += r[d] * z[d];
+        acc2[1] += r[d] * r[d];
       }
     }
-    block_sum<2>(acc2, red, tot);
-    if (tid == 0) {
-      float rz_new = tot[0], rr = tot[1];
-      for (int c = 0; c < 6; ++c) {
-        rz_new += cg->rp[c] * cg->zp[c];
-        rr += cg->rp[c] * cg->rp[c];
-      }
-      const float beta = fabsf(cg->rz) > 0.0f ? rz_new / cg->rz : 0.0f;
-      cg->beta = beta;
-      for (int c = 0; c < 6; ++c) cg->pp[c] = cg->zp[c] + beta * cg->pp[c];
-      cg->done = rr <= kCgTol * kCgTol * cg->b2;
-      if (!cg->done) cg->rz = rz_new;
+    warp_store(acc2, warp_row(R));
+    if (full_sh) {
+      __syncthreads();
+      push(o.zf, o.z, c);  // complete after the reduction's barrier
     }
-    __syncthreads();
-    if (cg->done) break;  // x is final once converged
-    const float beta = cg->beta;
-    for (int p = tid; p < in.P; p += nt)
-      for (int c = 0; c < 3; ++c)
-        s.p[3 * p + c] = s.z[3 * p + c] + beta * s.p[3 * p + c];
+    cluster_total(R, 2, slot);
+    float rz_new = R.tot[0], rr = R.tot[1];
+    for (int d = 0; d < 6; ++d) {
+      rz_new += pc->rp[d] * pc->zp[d];
+      rr += pc->rp[d] * pc->rp[d];
+    }
+    const float beta = fabsf(rz) > 0.0f ? rz_new / rz : 0.0f;
+    const bool done = rr <= kCgTol * kCgTol * b2;
+    if (!done) rz = rz_new;
+    if (tid < 6) pc->pp[tid] = pc->zp[tid] + beta * pc->pp[tid];
+    if (done) break;  // x is final once converged
+    if (full_sh) {
+      for (long k = tid; k < 3L * P; k += nt) o.p[k] = o.zf[k] + beta * o.p[k];
+    } else {
+      gather(o.p, o.z, c, sl, true, beta);  // p = z + beta p
+    }
     __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 pose_deformation_kernel(Inputs in, const float* __restrict__ params,
                         float* scratch, float* out_pose, float* out_flows,
-                        float* out_chi2, int n_rounds, int it0, int it1,
-                        int it2, int it3, int cg_iters) {
-  __shared__ float red[32 * kSysSums];
-  __shared__ float tot[kSysSums];
+                        float* out_chi2, SmemPlan plan, int n_rounds, int it0,
+                        int it1, int it2, int it3, int cg_iters) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Reducer<kSysSums> R;
   __shared__ SharedLin slin[2];
-  __shared__ SharedCG cg;
+  __shared__ PoseCG pose;
   __shared__ float s_q[4], s_t[3], s_qn[4], s_tn[3];
-  __shared__ float s_lam, s_nu;
-  __shared__ int s_cur, s_fcur, s_done;
+  __shared__ int s_off[kBlocks + 1];
 
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int P = in.P, E = in.E;
   in.info_r = params[15];
   in.info_s = params[16];
   in.info_p = params[17];
-  Scratch s = carve(scratch, P, E);
+  const Part c = part_of(in.pt_off, in.inc_ptr, plan.own);
+  Own o;
+  Lin trial;  // in global memory; copied to o.cur on acceptance
+  carve(smem, scratch, in, c, plan, o, trial);
+  const int own = c.p1 - c.p0;
+  const Slices sl{s_off, 1, in.P, plan.own,
+                  plan.own_sh ? 0L : static_cast<long>(kOwnFloats) * plan.own};
   const int iters[4] = {it0, it1, it2, it3};
+  int slot = 0, n_lm = 0, n_trips = 0, n_lin = 0;
 
-  // Cached rest differences and the initial masks.
-  for (int e = tid; e < E; e += nt) {
+  // Static fields of the edge-end records and the initial masks.
+  for (int kl = tid; kl < c.k1 - c.k0; kl += nt) {
+    const int kg = c.k0 + kl;
+    const int e = in.inc_edge[kg];
+    const bool iend = in.inc_sign[kg] > 0.0f;
     const int i = in.ei[e], j = in.ej[e];
-    for (int c = 0; c < 3; ++c)
-      s.drest[3 * e + c] = in.rest[3 * i + c] - in.rest[3 * j + c];
-    s.smask[e] = in.ebase[e];
+    float* rec = o.cur.es.at(kl);
+    rec[5] = in.ebase[e];
+    rec[6] = __int_as_float(iend ? j : -i - 1);
+    rec[7] = in.ew[e];
+    rec[8] = in.ed0[e];
+    rec[9] = in.ebase[e];
+    for (int d = 0; d < 3; ++d)
+      rec[10 + d] = in.rest[3 * i + d] - in.rest[3 * j + d];
   }
-  for (int p = tid; p < P; p += nt) s.pmask[p] = in.pmask[p];
-  if (tid == 0) s_fcur = 0;
-  __syncthreads();
+  for (int lp = tid; lp < own; lp += nt) o.pmask[lp] = in.pmask[c.p0 + lp];
+  if (tid <= c.C) s_off[tid] = in.pt_off[tid];
+  int fcur = 0;
 
   for (int r = 0; r < n_rounds; ++r) {
-    const float* sm = r > 0 ? s.smask : in.ebase;
     if (tid == 0) {
       for (int k = 0; k < 4; ++k) s_q[k] = params[8 + k];
       for (int k = 0; k < 3; ++k) s_t[k] = params[12 + k];
-      s_cur = 0;
     }
-    {
-      float* f = s.flows[s_fcur];
-      for (int p = tid; p < P; p += nt)
-        for (int c = 0; c < 3; ++c) f[3 * p + c] = 0.0f;
-    }
+    float* f = o.fl[fcur];
+    for (long k = tid; k < 3L * in.P; k += nt) f[k] = 0.0f;
     __syncthreads();
-    linearize(in, s, s_q, s_t, s.flows[s_fcur], s.pmask, sm, s.lin[0],
-              &slin[0], red, tot);
+    int cur = 0;
+    linearize(in, c, o, o.cur, s_q, s_t, f, kStep, &slin[cur], R, slot,
+              nullptr);
+    ++n_lin;
     // lambda0 = tau * max(diag H_pose, max_p diag D_p).
     float dmax = -INFINITY;
-    for (int p = tid; p < P; p += nt) {
-      const float* D = s.lin[0].D + 6 * p;
+    for (int lp = tid; lp < own; lp += nt) {
+      const float* D = o.cur.D + 6 * lp;
       dmax = fmaxf(dmax, fmaxf(D[0], fmaxf(D[3], D[5])));
     }
-    dmax = block_max(dmax, red);
-    if (tid == 0) {
-      for (int a = 0; a < 6; ++a) dmax = fmaxf(dmax, slin[0].H[a * 6 + a]);
-      s_lam = kLmTau * dmax;
-      s_nu = 2.0f;
-      s_done = 0;
-    }
-    __syncthreads();
+    dmax = cluster_max(R, dmax, slot);
+    for (int a = 0; a < 6; ++a) dmax = fmaxf(dmax, slin[cur].H[a * 6 + a]);
+    float lam = kLmTau * dmax, nu = 2.0f;
+    bool done = false;
 
     for (int j = 0; j < iters[r]; ++j) {
-      if (s_done) break;  // uniform: written by thread 0 before a barrier
-      const int cur = s_cur, fcur = s_fcur;
-      const float lam = s_lam;
-      pcg(in, s, s.lin[cur], &slin[cur], lam, cg_iters, &cg, red, tot);
-      if (tid == 0) se3_retract(s_q, s_t, cg.xp, s_qn, s_tn);
+      if (done) break;  // uniform: every thread of every block agrees
+      ++n_lm;
+      pcg(in, c, o, &slin[cur], lam, cg_iters, &pose, R, slot, n_trips, sl,
+          plan.full_sh != 0);
+      if (tid == 0) se3_retract(s_q, s_t, pose.xp, s_qn, s_tn);
       // Trial flows + the flow parts of the gain-ratio denominator and |dx|^2.
       float acc[2] = {0.0f, 0.0f};
-      const float* f = s.flows[fcur];
-      float* fn = s.flows[1 - fcur];
-      const float* gf = s.lin[cur].gf;
-      for (int p = tid; p < P; p += nt)
-        for (int c = 0; c < 3; ++c) {
-          const float dx = s.x[3 * p + c];
-          fn[3 * p + c] = f[3 * p + c] + dx;
-          acc[0] += dx * (lam * dx - gf[3 * p + c]);
+      const float* fc = o.fl[fcur];
+      float* fn = o.fl[1 - fcur];
+      for (int lp = tid; lp < own; lp += nt) {
+        const int p = c.p0 + lp;
+        for (int d = 0; d < 3; ++d) {
+          const float dx = o.x[3 * lp + d];
+          o.fo[3 * lp + d] = fc[3 * p + d] + dx;
+          acc[0] += dx * (lam * dx - o.cur.gf[3 * lp + d]);
           acc[1] += dx * dx;
         }
-      block_sum<2>(acc, red, tot);
-      const float denom_f = tot[0], dx2_f = tot[1];
-      linearize(in, s, s_qn, s_tn, fn, s.pmask, sm, s.lin[1 - cur],
-                &slin[1 - cur], red, tot);
-      if (tid == 0) {
-        float denom = denom_f, dx2 = dx2_f;
-        for (int c = 0; c < 6; ++c) {
-          const float d = cg.xp[c];
-          denom += d * (lam * d - slin[cur].g[c]);
-          dx2 += d * d;
+      }
+      warp_store(acc, warp_row(R));
+      cluster_total(R, 2, slot);  // also publishes every block's trial flows
+      const float denom_f = R.tot[0], dx2_f = R.tot[1];
+      gather(fn, o.fo, c, sl, false, 0.0f);
+      __syncthreads();
+      linearize(in, c, o, trial, s_qn, s_tn, fn, kStep, &slin[1 - cur], R,
+                slot, nullptr);
+      ++n_lin;
+      float denom = denom_f, dx2 = dx2_f;
+      for (int d = 0; d < 6; ++d) {
+        const float xd = pose.xp[d];
+        denom += xd * (lam * xd - slin[cur].g[d]);
+        dx2 += xd * xd;
+      }
+      const float rho = (slin[cur].chi2 - slin[1 - cur].chi2)
+                        / (fabsf(denom) > 0.0f ? denom : 1.0f);
+      const bool accepted = rho > 0.0f;
+      const float c3 = 2.0f * rho - 1.0f;
+      const float shrink = fmaxf(1.0f / 3.0f, 1.0f - c3 * c3 * c3);
+      lam = accepted ? lam * shrink : lam * nu;
+      nu = accepted ? 2.0f : nu * 2.0f;
+      if (accepted) {
+        cur = 1 - cur;
+        fcur = 1 - fcur;
+        for (int lp = tid; lp < own; lp += nt) {
+          for (int d = 0; d < 12; ++d) o.cur.Jp[12 * lp + d] = trial.Jp[12 * lp + d];
+          for (int d = 0; d < 6; ++d) o.cur.Jf[6 * lp + d] = trial.Jf[6 * lp + d];
+          o.cur.wr[lp] = trial.wr[lp];
+          for (int d = 0; d < 3; ++d) o.cur.gf[3 * lp + d] = trial.gf[3 * lp + d];
+          for (int d = 0; d < 6; ++d) o.cur.D[6 * lp + d] = trial.D[6 * lp + d];
         }
-        const float rho = (slin[cur].chi2 - slin[1 - cur].chi2)
-                          / (fabsf(denom) > 0.0f ? denom : 1.0f);
-        const bool accepted = rho > 0.0f;
-        const float c3 = 2.0f * rho - 1.0f;
-        const float shrink = fmaxf(1.0f / 3.0f, 1.0f - c3 * c3 * c3);
-        s_lam = accepted ? lam * shrink : lam * s_nu;
-        s_nu = accepted ? 2.0f : s_nu * 2.0f;
-        if (accepted) {
-          s_cur = 1 - cur;
-          s_fcur = 1 - fcur;
+        for (int kl = tid; kl < c.k1 - c.k0; kl += nt) {
+          float* dst = o.cur.es.at(kl);
+          const float* src = trial.es.at(kl);
+          for (int d = 0; d < 5; ++d) dst[d] = src[d];
+        }
+        if (tid == 0) {
           for (int k = 0; k < 4; ++k) s_q[k] = s_qn[k];
           for (int k = 0; k < 3; ++k) s_t[k] = s_tn[k];
-          s_done = dx2 < 1e-12f;
         }
+        done = dx2 < 1e-12f;
       }
       __syncthreads();
     }
 
     // Re-level at the round optimum with the full base masks.
-    const int cur = s_cur;
-    linearize(in, s, s_q, s_t, s.flows[s_fcur], in.pmask, in.ebase,
-              s.lin[1 - cur], &slin[1 - cur], red, tot);
-    const Lin& lr = s.lin[1 - cur];
-    for (int p = tid; p < P; p += nt)
-      s.pmask[p] = lr.chi2r[p] <= kTh2Dof ? in.pmask[p] : 0.0f;
-    for (int e = tid; e < E; e += nt)
-      s.smask[e] = lr.es[6L * e + 5] <= kTh3Dof ? in.ebase[e] : 0.0f;
-    __syncthreads();
+    linearize(in, c, o, trial, s_q, s_t, o.fl[fcur], kRelevel,
+              &slin[1 - cur], R, slot, nullptr);
+    ++n_lin;
   }
 
-  // Final linearization (full masks) for the per-point chi2 output.
-  const int cur = s_cur;
-  linearize(in, s, s_q, s_t, s.flows[s_fcur], in.pmask, in.ebase,
-            s.lin[1 - cur], &slin[1 - cur], red, tot);
-  const float* f = s.flows[s_fcur];
-  for (int p = tid; p < P; p += nt) {
-    for (int c = 0; c < 3; ++c) out_flows[3 * p + c] = f[3 * p + c];
-    out_chi2[p] = s.lin[1 - cur].chi2r[p];
-  }
-  if (tid == 0) {
+  // Final linearisation (full masks) for the per-point chi2 output.
+  linearize(in, c, o, trial, s_q, s_t, o.fl[fcur], kFinal, &slin[0], R,
+            slot, out_chi2);
+  ++n_lin;
+  const float* f = o.fl[fcur];
+  for (int lp = tid; lp < own; lp += nt)
+    for (int d = 0; d < 3; ++d)
+      out_flows[3 * (c.p0 + lp) + d] = f[3 * (c.p0 + lp) + d];
+  if (c.rank == 0 && tid == 0) {
     for (int k = 0; k < 4; ++k) out_pose[k] = s_q[k];
     for (int k = 0; k < 3; ++k) out_pose[4 + k] = s_t[k];
     out_pose[7] = 0.0f;
+    int* hdr = reinterpret_cast<int*>(scratch);
+    hdr[0] = n_lm;
+    hdr[1] = n_trips;
+    hdr[2] = n_lin;
+    hdr[3] = c.C;
+    hdr[4] = plan.cap;
+    hdr[5] = plan.full_sh;
+    hdr[6] = static_cast<int>(plan.bytes);
+    hdr[7] = plan.own_sh;
   }
+  cg::this_cluster().sync();  // no block leaves while others read its smem
 }
 
 }  // namespace
 }  // namespace nrslam
 
-// Scratch size in floats for P points and E edges.
-extern "C" long nrslam_pose_deformation_scratch(int P, int E) {
-  return nrslam::scratch_floats(P, E);
+// Blocks of the kernel's cluster: the wrapper's layout has this many owner
+// ranges.
+extern "C" int nrslam_pose_deformation_blocks() { return nrslam::kBlocks; }
+
+// Scratch size in floats for P points and a CSR of n_ends entries. The
+// first 16 floats are a header of ints: LM steps, CG trips,
+// linearisations, blocks, edge-end records in shared memory, full vectors
+// in shared memory (0/1), dynamic shared bytes per block, owned state in
+// shared memory (0/1).
+extern "C" long nrslam_pose_deformation_scratch(int P, int n_ends) {
+  return nrslam::scratch_floats(P, n_ends);
 }
 
 // C entry point. Pointers are device pointers; params = (fx, fy, cx, cy,
-// k0..k3, q (4), t (3), info_r, info_s, info_p). Returns cudaGetLastError().
+// k0..k3, q (4), t (3), info_r, info_s, info_p). pt_off [kBlocks + 1] and
+// the CSR (inc_ptr [P + 1], inc_edge / inc_sign [n_ends]) are the wrapper's
+// layout. Returns a CUDA error code: cudaErrorInvalidValue for P < 1,
+// cudaErrorInvalidConfiguration when the card cannot hold the cluster,
+// else cudaGetLastError() after the launch.
 extern "C" int nrslam_pose_deformation(
     const void* params, const void* rest, const void* obs, const void* pmask,
     const void* ei, const void* ej, const void* ew, const void* ed0,
-    const void* ebase, const void* inc_ptr, const void* inc_edge,
-    const void* inc_sign, void* scratch, void* out_pose, void* out_flows,
-    void* out_chi2, int P, int E, int kind,
-    int n_rounds, int it0, int it1, int it2, int it3, int cg_iters,
-    void* stream) {
+    const void* ebase, const void* pt_off, const void* inc_ptr,
+    const void* inc_edge, const void* inc_sign, void* scratch,
+    void* out_pose, void* out_flows, void* out_chi2, int P, int E,
+    int n_ends, int kind, int n_rounds, int it0, int it1, int it2,
+    int it3, int cg_iters, void* stream) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  long avail = 0;
+  cudaError_t err = nrslam::smem_available(nrslam::pose_deformation_kernel,
+                                           &avail);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const nrslam::SmemPlan plan = nrslam::plan_smem(
+      P, nrslam::kBlocks, nrslam::kOwnFloats, 4 * nrslam::pad4(3L * P),
+      nrslam::kRecFloats, n_ends, avail);
   nrslam::Inputs in;
   in.cam = static_cast<const float*>(params);
   in.rest = static_cast<const float*>(rest);
@@ -581,17 +694,21 @@ extern "C" int nrslam_pose_deformation(
   in.ew = static_cast<const float*>(ew);
   in.ed0 = static_cast<const float*>(ed0);
   in.ebase = static_cast<const float*>(ebase);
+  in.pt_off = static_cast<const int*>(pt_off);
   in.inc_ptr = static_cast<const int*>(inc_ptr);
   in.inc_edge = static_cast<const int*>(inc_edge);
   in.inc_sign = static_cast<const float*>(inc_sign);
   in.P = P;
   in.E = E;
+  in.n_ends = n_ends;
   in.kind = kind;
   in.info_r = in.info_s = in.info_p = 0.0f;  // read from params on device
-  nrslam::pose_deformation_kernel<<<1, nrslam::kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      in, static_cast<const float*>(params), static_cast<float*>(scratch),
+  return static_cast<int>(nrslam::launch_cluster(
+      nrslam::pose_deformation_kernel, nrslam::kBlocks, nrslam::kThreads,
+      plan.bytes,
+      static_cast<cudaStream_t>(stream), in,
+      static_cast<const float*>(params), static_cast<float*>(scratch),
       static_cast<float*>(out_pose), static_cast<float*>(out_flows),
-      static_cast<float*>(out_chi2), n_rounds, it0, it1, it2, it3, cg_iters);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(out_chi2), plan, n_rounds, it0, it1, it2, it3,
+      cg_iters));
 }

@@ -83,6 +83,7 @@ pose_only_kernel(const float* __restrict__ params, const float* __restrict__ X,
   for (int i = threadIdx.x; i < P; i += blockDim.x) level_mask[i] = valid[i];
 
   float acc[kSums];
+  int n_lm = 0;  // LM steps run, the same in every thread
   for (int r = 0; r < n_rounds; ++r) {
     if (threadIdx.x == 0) {
       for (int k = 0; k < 4; ++k) s_q[k] = params[8 + k];
@@ -111,6 +112,7 @@ pose_only_kernel(const float* __restrict__ params, const float* __restrict__ X,
 
     for (int j = 0; j < iters[r]; ++j) {
       if (s_done) break;  // uniform: written by thread 0 before a barrier
+      ++n_lm;
       if (threadIdx.x == 0) {
         float y[6];
         solve6(s_H, s_g, s_lam, y);
@@ -171,14 +173,15 @@ pose_only_kernel(const float* __restrict__ params, const float* __restrict__ X,
   if (threadIdx.x == 0) {
     for (int k = 0; k < 4; ++k) out[k] = s_q[k];
     for (int k = 0; k < 3; ++k) out[4 + k] = s_t[k];
-    out[7] = 0.0f;
+    out[7] = static_cast<float>(n_lm);
   }
 }
 
 }  // namespace
 }  // namespace nrslam
 
-// C entry point. Pointers are device pointers; returns cudaGetLastError().
+// C entry point. Pointers are device pointers; out = (q (4), t (3), LM
+// steps run). Returns cudaGetLastError().
 extern "C" int nrslam_pose_only(const void* params, const void* X,
                                 const void* obs, const void* valid,
                                 void* level_mask, void* out, int P, int kind,

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from nrslam_tpu_torch.utils.device import resolve
+
 PINHOLE = "pinhole"
 KB8 = "kb8"
 
@@ -20,13 +22,16 @@ class Camera(NamedTuple):
 
 
 def pinhole(fx, fy, cx, cy, device=None) -> Camera:
+    """On the card unless ``device`` says otherwise (``utils.device``)."""
     return Camera(torch.tensor([fx, fy, cx, cy], dtype=torch.float32,
-                               device=device), PINHOLE)
+                               device=resolve(device)), PINHOLE)
 
 
 def kannala_brandt8(fx, fy, cx, cy, k0, k1, k2, k3, device=None) -> Camera:
+    """On the card unless ``device`` says otherwise (``utils.device``)."""
     return Camera(torch.tensor([fx, fy, cx, cy, k0, k1, k2, k3],
-                               dtype=torch.float32, device=device), KB8)
+                               dtype=torch.float32, device=resolve(device)),
+                  KB8)
 
 
 def project(cam: Camera, X):

@@ -29,7 +29,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# ptxas's report (registers, shared memory, spills) of each source compiled
+# by this process, by file name; empty when the library was already built.
+build_log: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,10 +41,12 @@ _I = ctypes.c_int
 # C signatures: name -> (restype, argtypes).
 _SIGNATURES = {
     "nrslam_pose_only": (_I, [_P] * 6 + [_I] * 7 + [_P]),
-    "nrslam_pose_deformation": (_I, [_P] * 16 + [_I] * 9 + [_P]),
+    "nrslam_pose_deformation": (_I, [_P] * 17 + [_I] * 10 + [_P]),
     "nrslam_pose_deformation_scratch": (ctypes.c_long, [_I, _I]),
-    "nrslam_ba": (_I, [_P] * 16 + [_I] * 6 + [_P]),
+    "nrslam_pose_deformation_blocks": (_I, []),
+    "nrslam_ba": (_I, [_P] * 17 + [_I] * 7 + [_P]),
     "nrslam_ba_scratch": (ctypes.c_long, [_I, _I, _I]),
+    "nrslam_ba_blocks": (_I, []),
 }
 
 
@@ -70,15 +76,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(procs) -> None:
-    """Wait for every (name, Popen); raise with the output of a failure."""
-    failed = []
+def _run(procs) -> dict:
+    """Wait for every (name, Popen); raise with the output of a failure,
+    else return each one's output by name."""
+    failed, logs = [], {}
     for name, proc in procs:
         out, err = proc.communicate()
+        logs[name] = out + err
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode}):\n{out}{err}")
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,10 +100,10 @@ def library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
             nvcc = _nvcc()
-            _run([(f.name, subprocess.Popen(
+            build_log.update(_run([(f.name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)], text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-                for f, o in zip(cu, objs)])
+                for f, o in zip(cu, objs)]))
             linked = os.path.join(tmp, "lib.so")
             _run([("link", subprocess.Popen(
                 [nvcc, "-shared", "-o", linked, *objs], text=True,

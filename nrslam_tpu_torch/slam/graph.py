@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from nrslam_tpu_torch.utils.device import resolve
+
 STRETCH_THRESHOLD = 1.1
 MIN_WEIGHT = math.exp(-1.125)
 
@@ -32,6 +34,8 @@ class GraphState(NamedTuple):
 
 
 def empty(capacity: int, sigma: float = 10.5, device=None) -> GraphState:
+    """On the card unless ``device`` says otherwise (``utils.device``)."""
+    device = resolve(device)
     z = torch.zeros((capacity, capacity), dtype=torch.float32, device=device)
     f = torch.zeros((capacity, capacity), dtype=torch.bool, device=device)
     return GraphState(exists=f, bad=f.clone(), first_distance=z,

@@ -15,6 +15,7 @@ import torch
 from nrslam_tpu_torch.geometry import se3
 from nrslam_tpu_torch.ops import klt
 from nrslam_tpu_torch.slam import graph as graph_mod
+from nrslam_tpu_torch.utils.device import resolve
 
 NOT_IN_FRAME = 6
 
@@ -90,6 +91,8 @@ class SlamState(NamedTuple):
 
 
 def empty_state(config: Config, image_shape, device=None) -> SlamState:
+    """On the card unless ``device`` says otherwise (``utils.device``)."""
+    device = resolve(device)
     P = config.max_points
     K = config.max_keyframes
     T = config.temporal_window

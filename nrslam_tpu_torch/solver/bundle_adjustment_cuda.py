@@ -4,16 +4,18 @@ counterpart of nrslam_tpu/solver/bundle_adjustment_pallas.py.
 The wrapper forms the factor masks as ``bundle_adjustment._masks`` does
 (observed copies [K, P], springs [K, E], dampers [K-1, E] padded with a zero
 row to [K, E]), clamps rest distances to >= 1e-12 and builds, once per call,
-the CSR of each point's incident edges that any keyframe uses (stable sort on
-the endpoints, ``pose_deformation_cuda.incidence_csr``); one edge table
-serves all K keyframes. It reads nothing back to the host: sizes come from
-tensor shapes. Unlike the Pallas wrapper it does not sanitise unobserved
-copies: the kernel skips every masked term and returns those copies
-unchanged.
+the kernel's per-block layout (``pose_deformation_cuda.cluster_layout``) over
+the edges any keyframe uses; one edge table serves all K keyframes. It reads
+nothing back to the host: sizes come from tensor shapes. Unlike the Pallas
+wrapper it does not sanitise unobserved copies: the kernel skips every
+masked term and returns those copies unchanged.
 
-Takes CUDA tensors only and raises otherwise; the plain version is
-``bundle_adjustment.local_deformable_ba_plain``. ``launches`` counts
-launches.
+``prepare`` builds a launch's inputs and layout, ``launch`` runs the kernel
+on them (``local_deformable_ba_cuda`` does both). Takes CUDA tensors only
+and raises otherwise, or when the card refuses the cluster; the plain
+version is ``bundle_adjustment.local_deformable_ba_plain``. ``launches``
+counts launches; ``last_work`` is the device header of the last launch
+(``pose_deformation_cuda.WORK_FIELDS``).
 """
 
 from __future__ import annotations
@@ -23,20 +25,19 @@ import torch.nn.functional as F
 
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
-from nrslam_tpu_torch.solver.pose_deformation_cuda import incidence_csr
+from nrslam_tpu_torch.solver.pose_deformation_cuda import (
+    WORK_FIELDS, Prepared, cluster_layout)
 
 launches = 0
+last_work = None
 
 MAX_K = 8
 _KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
 
 
-def local_deformable_ba_cuda(cam: cameras.Camera, poses0: se3.SE3, L0,
-                             problem, n_iters: int = 5, cg_iters: int = 32):
-    """Drop-in for the plain driver on CUDA tensors: poses0 [K], L0 [K, P, 3],
-    ``problem`` a ``bundle_adjustment.BAProblem``. Returns (poses [K],
-    landmarks [K, P, 3])."""
-    global launches
+def prepare(cam: cameras.Camera, poses0: se3.SE3, L0, problem,
+            n_iters: int = 5, cg_iters: int = 32) -> Prepared:
+    """Inputs, layout, scratch and outputs of one launch (device ops)."""
     from nrslam_tpu_torch.solver.bundle_adjustment import _masks
 
     K, P, _ = L0.shape
@@ -52,8 +53,6 @@ def local_deformable_ba_cuda(cam: cameras.Camera, poses0: se3.SE3, L0,
     E = i.shape[0]
     obs_ok, spring, damper = _masks(problem._replace(
         pairs=pairs._replace(i=i, j=j)))
-    inc_ptr, inc_edge, inc_sign = incidence_csr(i, j, torch.any(spring, 0),
-                                                P)
     dmask = torch.cat([damper, torch.zeros_like(spring[:1])])
 
     sigma_s = 0.1 * torch.as_tensor(problem.scale, dtype=torch.float32,
@@ -65,30 +64,48 @@ def local_deformable_ba_cuda(cam: cameras.Camera, poses0: se3.SE3, L0,
                                device=L0.device)], dim=-1).reshape(-1),
         (1.0 / (sigma_s * sigma_s)).reshape(1)]).contiguous()
 
-    L_c = L0.to(torch.float32).contiguous()
-    obs_c = problem.obs.to(torch.float32).contiguous()
-    omask = obs_ok.to(torch.float32).contiguous()
-    ei = i.to(torch.int32).contiguous()
-    ej = j.to(torch.int32).contiguous()
-    ew = pairs.w.to(torch.float32).contiguous()
-    ed0 = torch.clamp(pairs.d0.to(torch.float32), min=1e-12).contiguous()
-    smask = spring.to(torch.float32).contiguous()
-    dmask = dmask.to(torch.float32).contiguous()
-    dev = kernels.require_cuda("bundle_adjustment", L_c, obs_c, omask, ei, ej,
-                               ew, ed0, smask, dmask, inc_ptr, inc_edge,
-                               inc_sign, params)
+    tensors = (params, L0.to(torch.float32).contiguous(),
+               problem.obs.to(torch.float32).contiguous(),
+               obs_ok.to(torch.float32).contiguous(),
+               i.to(torch.int32).contiguous(), j.to(torch.int32).contiguous(),
+               pairs.w.to(torch.float32).contiguous(),
+               torch.clamp(pairs.d0.to(torch.float32), min=1e-12).contiguous(),
+               spring.to(torch.float32).contiguous(),
+               dmask.to(torch.float32).contiguous())
+    dev = kernels.require_cuda("bundle_adjustment", *tensors)
     lib = kernels.library()
-    scratch = torch.empty(lib.nrslam_ba_scratch(K, P, E), dtype=torch.float32,
-                          device=dev)
-    out_pose = torch.empty((K, 8), dtype=torch.float32, device=dev)
-    out_L = torch.empty((K, P, 3), dtype=torch.float32, device=dev)
-    rc = lib.nrslam_ba(
-        *(t.data_ptr() for t in (params, L_c, obs_c, omask, ei, ej, ew, ed0,
-                                   smask, dmask, inc_ptr, inc_edge, inc_sign,
-                                   scratch, out_pose, out_L)),
-        K, P, E, _KINDS[cam.kind], n_iters, cg_iters, kernels.stream_of(dev))
+    tensors += cluster_layout(i, j, torch.any(spring, 0), P,
+                              lib.nrslam_ba_blocks())
+    n_ends = 2 * E
+    scratch = torch.empty(lib.nrslam_ba_scratch(K, P, n_ends),
+                          dtype=torch.float32, device=dev)
+    out = (torch.empty((K, 8), dtype=torch.float32, device=dev),
+           torch.empty((K, P, 3), dtype=torch.float32, device=dev))
+    sizes = (K, P, E, n_ends, _KINDS[cam.kind], n_iters, cg_iters)
+    return Prepared(tensors, sizes, scratch, out)
+
+
+def launch(prep: Prepared):
+    """Run the kernel on a prepared launch; returns (poses [K, 8],
+    landmarks [K, P, 3]), the tensors of ``prep.out``."""
+    global launches, last_work
+    dev = prep.scratch.device
+    rc = kernels.library().nrslam_ba(
+        *(t.data_ptr() for t in (*prep.tensors, prep.scratch, *prep.out)),
+        *prep.sizes, kernels.stream_of(dev))
     kernels.check_launch("bundle_adjustment", rc)
     launches += 1
+    last_work = prep.scratch[:len(WORK_FIELDS)].view(torch.int32)
+    return prep.out
+
+
+def local_deformable_ba_cuda(cam: cameras.Camera, poses0: se3.SE3, L0,
+                             problem, n_iters: int = 5, cg_iters: int = 32):
+    """Drop-in for the plain driver on CUDA tensors: poses0 [K], L0 [K, P, 3],
+    ``problem`` a ``bundle_adjustment.BAProblem``. Returns (poses [K],
+    landmarks [K, P, 3])."""
+    out_pose, out_L = launch(prepare(cam, poses0, L0, problem, n_iters,
+                                     cg_iters))
     q = out_pose[:, :4]
     return se3.SE3(q / torch.linalg.norm(q, dim=-1, keepdim=True),
                    out_pose[:, 4:7]), out_L

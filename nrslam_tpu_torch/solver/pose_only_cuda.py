@@ -3,7 +3,8 @@ of nrslam_tpu/solver/pose_only_pallas.py.
 
 Takes CUDA tensors only and raises otherwise; the plain PyTorch version is
 ``pose_only.camera_pose_optimization_plain``. ``launches`` counts the
-kernel launches this wrapper made.
+kernel launches this wrapper made; ``last_lm_steps`` is a device tensor [1]
+holding the LM steps the last launch ran.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
 
 launches = 0
+last_lm_steps = None
 
 _KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
 
@@ -24,7 +26,7 @@ def camera_pose_optimization_cuda(cam: cameras.Camera, Tcw0: se3.SE3,
                                   rounds=(10, 10, 10)) -> se3.SE3:
     """Drop-in for the plain driver on CUDA tensors: landmarks [P, 3],
     obs [P, 2], valid [P] bool."""
-    global launches
+    global launches, last_lm_steps
     P = landmarks.shape[0]
     if landmarks.shape != (P, 3) or obs.shape != (P, 2) \
             or valid.shape != (P,):
@@ -50,5 +52,6 @@ def camera_pose_optimization_cuda(cam: cameras.Camera, Tcw0: se3.SE3,
         P, _KINDS[cam.kind], len(rounds), *it, kernels.stream_of(dev))
     kernels.check_launch("pose_only", rc)
     launches += 1
+    last_lm_steps = out[7:]
     q = out[:4]
     return se3.SE3(q / torch.linalg.norm(q), out[4:7])

@@ -100,8 +100,9 @@ CAMS = {
 def _cams(kind):
     f, k = CAMS[kind]
     if kind == "pinhole":
-        return jcam.pinhole(*f), tcam.pinhole(*f)
-    return jcam.kannala_brandt8(*f, *k), tcam.kannala_brandt8(*f, *k)
+        return jcam.pinhole(*f), tcam.pinhole(*f, device="cpu")
+    return (jcam.kannala_brandt8(*f, *k),
+            tcam.kannala_brandt8(*f, *k, device="cpu"))
 
 
 @pytest.mark.parametrize("kind", ["pinhole", "kb8"])

@@ -55,7 +55,7 @@ def test_graph_ops():
     valid = rng.uniform(size=P) < 0.8
     gj = jgraph.initialize(jgraph.empty(P), jnp.asarray(pos),
                            jnp.asarray(valid), 3.0)
-    gt = tgraph.initialize(tgraph.empty(P), torch.as_tensor(pos),
+    gt = tgraph.initialize(tgraph.empty(P, device="cpu"), torch.as_tensor(pos),
                            torch.as_tensor(valid), 3.0)
     for f in gj._fields:
         _eq(getattr(gt, f), getattr(gj, f), 1e-6 if f != "exists" else 0.0)
@@ -139,8 +139,8 @@ def test_deformable_triangulate(deform_amp):
         jcam.pinhole(*PIN), ij, jse3.SE3(jnp.asarray(q), jnp.asarray(t)),
         0.002)
     Xt, okt = tdt.deformable_triangulate(
-        tcam.pinhole(*PIN), it, tse3.SE3(torch.as_tensor(q),
-                                         torch.as_tensor(t)), 0.002)
+        tcam.pinhole(*PIN, device="cpu"), it,
+        tse3.SE3(torch.as_tensor(q), torch.as_tensor(t)), 0.002)
     _eq(okt, okj)
     ok = np_of(okj)
     assert ok.sum() >= 4
@@ -196,7 +196,8 @@ def test_local_deformable_ba(masked_kfs):
         jcam.pinhole(*PIN), jse3.SE3(jnp.asarray(q0), jnp.asarray(t0)),
         jnp.asarray(L0), prob_j, cg_iters=16)
     Pt, Lt = tba.local_deformable_ba(
-        tcam.pinhole(*PIN), tse3.SE3(torch.as_tensor(q0), torch.as_tensor(t0)),
+        tcam.pinhole(*PIN, device="cpu"),
+        tse3.SE3(torch.as_tensor(q0), torch.as_tensor(t0)),
         torch.as_tensor(L0), prob_t, cg_iters=16)
     live = kf_valid
     assert np.isfinite(np_of(Lt)[live]).all()

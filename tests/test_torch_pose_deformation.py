@@ -33,9 +33,9 @@ KB8 = ((400.0, 400.0, 479.5, 359.5), (0.05, -0.01, 0.004, -0.001))
 
 def _cams(kind):
     if kind == "pinhole":
-        return jcam.pinhole(*PIN), tcam.pinhole(*PIN)
+        return jcam.pinhole(*PIN), tcam.pinhole(*PIN, device="cpu")
     return (jcam.kannala_brandt8(*KB8[0], *KB8[1]),
-            tcam.kannala_brandt8(*KB8[0], *KB8[1]))
+            tcam.kannala_brandt8(*KB8[0], *KB8[1], device="cpu"))
 
 
 def knn_table(X, k):

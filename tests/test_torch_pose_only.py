@@ -32,9 +32,10 @@ def _problem(kind, seed, P=200):
     """Numpy rebuild of test_pose_only_pallas._problem."""
     rng = np.random.default_rng(seed)
     if kind == "pinhole":
-        cj, ct = jcam.pinhole(*F), tcam.pinhole(*F)
+        cj, ct = jcam.pinhole(*F), tcam.pinhole(*F, device="cpu")
     else:
-        cj, ct = jcam.kannala_brandt8(*F, *K), tcam.kannala_brandt8(*F, *K)
+        cj = jcam.kannala_brandt8(*F, *K)
+        ct = tcam.kannala_brandt8(*F, *K, device="cpu")
     X = (rng.uniform(-1, 1, (P, 3)) + [0.0, 0.0, 3.0]).astype(np.float32)
     q = np.array([1.0, 0.02, -0.03, 0.01], np.float32)
     T_true = jse3.SE3(jnp.asarray(q / np.linalg.norm(q)),

@@ -75,7 +75,7 @@ def test_render_frame(kind):
     cfg_t = tsyn.SceneConfig(height=48, width=64, deform_amp=0.02,
                              camera_kind=kind)
     gj, dj, Tj = jsyn.render_frame(3, cfg_j)
-    gt, dt, Tt = tsyn.render_frame(3, cfg_t)
+    gt, dt, Tt = tsyn.render_frame(3, cfg_t, device="cpu")
     assert np.max(np.abs(np_of(gt) - np_of(gj))) < 0.05
     assert np.max(np.abs(np_of(dt) - np_of(dj))) < 1e-4
     assert np.max(np.abs(np_of(Tt.t) - np_of(Tj.t))) < 1e-6

@@ -56,7 +56,7 @@ def test_bootstrap_map():
     assert bool(res.success)
     bj = jsys.bootstrap_map(jstate.empty_state(config, (H, W)), res, pyr,
                             config)
-    bt = tsys.bootstrap_map(tstate.empty_state(config, (H, W)), to_port(res),
+    bt = tsys.bootstrap_map(tstate.empty_state(config, (H, W), device="cpu"), to_port(res),
                             to_port(pyr), config)
     for f in ("slot_used", "track_id", "has_3d", "status", "next_track_id",
               "kf_valid", "kf_obs", "kf_id", "tb_valid", "frame_id"):
@@ -150,7 +150,7 @@ def test_synthetic_sequence():
     scene_j = jsyn.SceneConfig(height=48, width=64, deform_amp=0.02)
     scene_t = tsyn.SceneConfig(height=48, width=64, deform_amp=0.02)
     sj = jsyn.SyntheticSequence(scene_j, n_frames=5)
-    st = tsyn.SyntheticSequence(scene_t, n_frames=5)
+    st = tsyn.SyntheticSequence(scene_t, n_frames=5, device="cpu")
     assert len(sj) == len(st) == 5
     gj, dj, Tj = sj.get_frame(4)
     _close(gj, st.get_image(4), 0.05)   # see test_torch_slice.test_render_frame
