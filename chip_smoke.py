@@ -6,15 +6,16 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 System three ways, the card with the kernels, the card with the plain
 drivers, the CPU, and prints each one's accuracy and how far their
 trajectories drift apart; ``python3 chip_smoke.py --wrappers TREE`` only
-times the joint and BA wrappers of the package in TREE, e.g. another
-commit's ``git archive``: measurements, not checks.)
+times the pose-only, joint and BA wrappers of the package in TREE, e.g.
+another commit's ``git archive``: measurements, not checks.)
 
 Phases (any failure raises and exits non-zero; nothing is caught; each
 prints its seconds):
   1. require a CUDA device; print the card's name and power limit;
   2. build the three hand-written kernels from csrc/ with nvcc (sm_90a, one
      nvcc per source, all started together) and print ptxas's register,
-     stack, spill and shared-memory report ([ptxas]);
+     stack, spill and shared-memory report ([ptxas]); both instantiations
+     of the pose-only kernel (pinhole, KB8) must show no spills;
   3. kernel phase: at the frame's shapes (P=768, E=5376 from a K=11 kNN
      graph on a seeded scene) and at the 320x240 slice's (P=384, E=2688),
      pinhole and KB8, the pose-only and joint kernels against their plain
@@ -23,15 +24,23 @@ prints its seconds):
      keyframe's shapes (K=5, P=768, E=5376, noisy seeds, ~25% of copies
      unobserved), pinhole, KB8 and a window with 3 of 5 valid slots,
      against the plain BA driver, with unobserved copies checked unchanged.
-     The joint and BA kernels must give the same bits on two launches
-     ([determinism]). Kernels timed with CUDA events as the median of 20
-     after warm-up, alone on prepared inputs and through their wrappers,
-     plain versions as the median of 5 (joint, BA); each with the work it
-     reports (LM steps, CG trips, linearisations) and its bound;
-  3b. shared-memory overflow: the joint at P=4096 and 9216 and the BA at
-     K=8 with P=768, 1536 and 2048, where edge-end records, the full
-     vector copies or the owned state no longer fit in shared memory,
-     against the plain drivers under the same gates ([overflow]);
+     Every kernel must give the same bits on two launches ([determinism]).
+     Kernels timed with CUDA events as the median of 20 after warm-up,
+     alone on prepared inputs and through their wrappers, plain versions
+     as the median of 20 (pose-only) or 5 (joint, BA); each with the work
+     it reports (LM steps, CG trips, linearisations) and its bound. The
+     pose-only kernel also: one wrapper call runs exactly one device kernel
+     (torch.profiler), a 5-round schedule held to plain, and the spread of
+     3 seeded permutations of its points ([spread], a measurement);
+  3b. shared-memory overflow: the pose-only kernel with its points in
+     shared memory too (P=768 with 64 threads), and at the sizes that take
+     each plan by default (P=131 in registers only, 4096 in shared and
+     16384 in global memory, on the scene made rigid), and P=16384 on the
+     deformed scene, held to 3x the plain driver's own spread under 8
+     permutations on the card; the joint at P=4096 and 9216 and the BA at
+     K=8 with P=768, 1536 and 2048, where edge-end records, the full vector
+     copies or the owned state no longer fit in shared memory; each against
+     the plain drivers under the same gates ([overflow]);
   4. slice parity: 6 frames of frame_step at 320x240/P=384 on CUDA (with
      the kernels) and on the CPU (plain versions) from one start state;
   5. system parity: System.track_image_with_depth from frame 0 on the
@@ -55,7 +64,8 @@ prints its seconds):
      the kernels' record reports;
   8. the pose-only kernel against its plain version on the inputs the main
      path's two-view refinement gave it (P = 1024 features, only the
-     triangulated ones valid), at the same-device gate, and timed.
+     triangulated ones valid), at the same-device gate, and timed (bare
+     launch and wrapper).
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the last line is {"ok": true, "device":
@@ -159,10 +169,23 @@ def ba_flops(work, K: int, P: int, E_live: int) -> float:
 
 def pose_only_flops(lm_steps: int, n_valid: int, rounds: int = 3) -> float:
     """~180 per valid point per evaluation of the 6x6 normal equations
-    (transform, projection, Jacobian, 21 H + 6 g + chi2 partials); one
-    evaluation per LM step plus one to start and one to re-level per
-    round."""
-    return 180 * n_valid * (lm_steps + 2 * rounds)
+    (transform, projection, Jacobian, 21 H + 6 g + chi2 partials), one
+    evaluation per LM step plus one to start each round; ~40 per valid
+    point per re-level (transform, projection, chi2), one between rounds."""
+    return n_valid * (180 * (lm_steps + rounds) + 40 * (rounds - 1))
+
+
+def pose_only_passes(lm_steps: int, rounds: int = 3) -> int:
+    """Passes over the points one call makes: an evaluation per LM step and
+    one to start each round, and a re-level between rounds (the last
+    round's is not run)."""
+    return lm_steps + rounds + (rounds - 1)
+
+
+def pose_only_bytes(prep) -> int:
+    """Inputs read once (camera, seed, points, observations, mask, schedule)
+    and the output [8] written once."""
+    return nbytes(*prep.tensors, prep.out)
 
 
 def nbytes(*tensors) -> int:
@@ -193,6 +216,112 @@ def check_deterministic(label: str, launch, prep):
     if not same:
         raise AssertionError(f"{label}: two launches on the same inputs "
                              "differ")
+
+
+def check_pose_only(label, cam, T0, X, obs, valid, rounds=(10, 10, 10)):
+    """Kernel 1 against the plain driver on one problem: |dq|, |dt| below
+    SAME_DEVICE_POSE_TOL (the CPU tests' 1e-4 is implied), two launches
+    bit-identical. Returns (max error, LM steps, the prepared launch, the
+    plain driver's pose)."""
+    from nrslam_tpu_torch.solver import pose_only
+    from nrslam_tpu_torch.solver import pose_only_cuda as poc
+
+    T_k = poc.camera_pose_optimization_cuda(cam, T0, X, obs, valid, rounds)
+    steps = int(poc.last_lm_steps.item())
+    T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid,
+                                                   rounds)
+    dq, dt = quat_err(T_k.q, T_p.q), float(torch.linalg.norm(T_k.t - T_p.t))
+    prep = poc.prepare(cam, T0, X, obs, valid, rounds)
+    print(f"[kernel] pose_only {label}: |dq|={dq:.3e} |dt|={dt:.3e} (tol "
+          f"{SAME_DEVICE_POSE_TOL:.0e}); {steps} LM steps; plan "
+          f"{prep.plan._asdict()}")
+    if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL):
+        raise AssertionError(f"pose_only {label} disagrees with plain")
+    check_deterministic(f"pose_only {label}", lambda p: (poc.launch(p),),
+                        prep)
+    return (max(dq, float(torch.max(torch.abs(T_k.t - T_p.t)))), steps, prep,
+            T_p)
+
+
+SPREAD_PERMS = 8
+
+
+def perm_spread(solve, cam, T0, X, obs, valid, T_ref, n: int):
+    """The largest |dq|, |dt| of ``solve`` on n seeded permutations of the
+    points against ``T_ref``, its unpermuted solve: what float32 summation
+    order alone does to this problem."""
+    dq = dt = 0.0
+    for seed in range(n):
+        perm = torch.randperm(X.shape[0], generator=torch.Generator()
+                              .manual_seed(seed)).to(X.device)
+        T = solve(cam, T0, X[perm], obs[perm], valid[perm])
+        dq = max(dq, quat_err(T.q, T_ref.q))
+        dt = max(dt, float(torch.linalg.norm(T.t - T_ref.t)))
+    return dq, dt
+
+
+def device_kernels_per_call(fn) -> dict:
+    """The device operations one call of ``fn`` runs, by name, from
+    torch.profiler (after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def pose_only_extras(dev):
+    """Kernel 1 beyond the main shapes' checks: device kernels per wrapper
+    call (must be 1), a 5-round schedule held to plain, and the spread that
+    summation order alone gives (the kernel on 3 seeded permutations of the
+    P=768 points against the unpermuted call; a measurement)."""
+    from nrslam_tpu_torch.bench_problem import solver_problem
+    from nrslam_tpu_torch.solver import pose_only_cuda as poc
+
+    cam, T0, X, obs, valid, _ = solver_problem("pinhole", device=dev,
+                                               with_pairs=False)
+    ops = device_kernels_per_call(
+        lambda: poc.camera_pose_optimization_cuda(cam, T0, X, obs, valid))
+    n_ops = sum(ops.values())
+    print(f"[kernel] pose_only: one wrapper call runs {n_ops} device "
+          f"kernel(s) (torch.profiler): {ops}")
+    if n_ops != 1:
+        raise AssertionError(f"pose_only wrapper ran {n_ops} device kernels, "
+                             "expected 1")
+    err = check_pose_only("pinhole P=768 rounds=(3, 5, 2, 4, 6)", cam, T0, X,
+                          obs, valid, rounds=(3, 5, 2, 4, 6))[0]
+    solve = poc.camera_pose_optimization_cuda
+    dq, dt = perm_spread(solve, cam, T0, X, obs, valid,
+                         solve(cam, T0, X, obs, valid), 3)
+    print(f"[spread] pose_only pinhole P=768: the kernel on 3 seeded "
+          f"permutations of the points against the unpermuted call: max "
+          f"|dq|={dq:.3e} |dt|={dt:.3e} (summation order alone; the "
+          f"same-device gate is {SAME_DEVICE_POSE_TOL:.0e})")
+    return err
+
+
+def check_no_spills(log: str, kernel: str, instances: int):
+    """ptxas's report (``-Xptxas -v``) of each of ``instances``
+    instantiations of ``kernel`` shows no spill stores or loads. Fails when
+    there is no report to read."""
+    if not log:
+        raise AssertionError(f"{kernel}: no ptxas report in kernels.build_log "
+                             "(it is written beside the library at build)")
+    lines = log.splitlines()
+    reports = [lines[k + 1] for k, line in enumerate(lines[:-1])
+               if "Function properties for" in line and kernel in line]
+    clean = [r for r in reports
+             if "0 bytes spill stores, 0 bytes spill loads" in r]
+    print(f"[ptxas] {kernel}: {len(clean)} of {len(reports)} instantiations "
+          f"without spills (expected {instances})")
+    if len(reports) != instances or len(clean) != instances:
+        raise AssertionError(f"{kernel}: spills or unexpected "
+                             f"instantiations: {reports}")
 
 
 def check_joint(label, cam, seed, X, obs, valid, cp):
@@ -282,34 +411,31 @@ def kernel_phase(dev):
         main = P == 768
         label = f"{kind} P={P}"
 
-        # Kernel 1: |dq|, |dt| below SAME_DEVICE_POSE_TOL; the CPU tests'
-        # 1e-4 (tests/test_torch_pose_only.py) is implied.
-        T_k = pose_only_cuda.camera_pose_optimization_cuda(cam, T0, X, obs,
-                                                           valid)
-        po_steps = int(pose_only_cuda.last_lm_steps.item())
-        T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
-        dq, dt = quat_err(T_k.q, T_p.q), float(torch.linalg.norm(T_k.t - T_p.t))
-        print(f"[kernel] pose_only {label}: |dq|={dq:.3e} |dt|={dt:.3e} "
-              f"(tol {SAME_DEVICE_POSE_TOL:.0e})")
-        if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL):
-            raise AssertionError(f"pose_only {label} disagrees with plain")
-        err_po = max(err_po, dq, float(torch.max(torch.abs(T_k.t - T_p.t))))
+        # Kernel 1: the same-device gate, two launches bit-identical; the
+        # bare launch and the wrapper timed.
+        err, po_steps, prep, T_p = check_pose_only(label, cam, T0, X, obs,
+                                                   valid)
+        err_po = max(err_po, err)
+        ms_a = cuda_ms(lambda: pose_only_cuda.launch(prep))
+        ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
+            cam, T0, X, obs, valid))
+        ms_p = float("nan")
         if main:
-            ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
-                cam, T0, X, obs, valid))
             ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
                 cam, T0, X, obs, valid))
-            flops = pose_only_flops(po_steps, int(valid.sum()))
-            # landmarks, observations, the float mask, params [16], out [8]
-            n_b = nbytes(X, obs) + 4 * P + 4 * 16 + 4 * 8
-            b_ms, by = bound(flops, n_b)
-            print(f"[kernel] pose_only {label}: kernel {ms_k:.4f} ms, plain "
-                  f"{ms_p:.4f} ms; {po_steps} LM steps; bound {b_ms:.6f} ms "
-                  f"({by}: {flops / 1e6:.3f} MFLOP, {n_b / 1e6:.4f} MB), "
-                  f"kernel/bound {ms_k / b_ms:.0f}")
-            if kind == "pinhole":
-                rec["pose_only"] = kernel_record(ms_k, ms_k, ms_p, flops, n_b,
-                                                 {"lm_steps": po_steps})
+        flops = pose_only_flops(po_steps, int(valid.sum()))
+        n_b = pose_only_bytes(prep)
+        b_ms, by = bound(flops, n_b)
+        print(f"[kernel] pose_only {label}: kernel alone {ms_a:.4f} ms, "
+              f"wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms; {po_steps} LM "
+              f"steps, {1e3 * ms_a / pose_only_passes(po_steps):.3f} us per "
+              f"pass (kernel alone / (LM steps + 3 rounds + 2 re-levels)); "
+              f"bound "
+              f"{b_ms:.6f} ms ({by}: {flops / 1e6:.3f} MFLOP, "
+              f"{n_b / 1e6:.4f} MB), kernel/bound {ms_a / b_ms:.0f}")
+        if main and kind == "pinhole":
+            rec["pose_only"] = kernel_record(ms_a, ms_k, ms_p, flops, n_b,
+                                             {"lm_steps": po_steps})
 
         # Kernel 2: the tolerances of tests/test_pose_deformation_pallas.py,
         # then the same-device gates on pose and on every point's flow.
@@ -336,7 +462,7 @@ def kernel_phase(dev):
         if main and kind == "pinhole":
             rec["pose_deformation"] = kernel_record(ms_a, ms_k, ms_p, flops,
                                                     n_b, work)
-    rec["pose_only"]["err"] = err_po
+    rec["pose_only"]["err"] = max(err_po, pose_only_extras(dev))
     rec["pose_deformation"]["err"] = err_pd
     rec["bundle_adjustment"] = ba_kernel_phase(dev)
     torch.cuda.synchronize()
@@ -391,11 +517,13 @@ def block_ends(prep) -> int:
 
 def overflow_phase(dev):
     """The shared-memory plans the main path does not reach, each held to
-    the plain driver under the same gates as the main shapes: the joint at
-    P=4096 (full copies in global memory, z exchanged by pulls, edge-end
-    records overflowing) and P=9216 (owned state in global memory too); the
-    BA at K=8 with P=768 (edge-end records overflowing), P=1536 (full
-    copies in global memory) and P=2048 (owned state in global memory).
+    the plain driver under the same gates as the main shapes: the pose-only
+    kernel at P=768 with 64 threads (points in shared memory too), then at
+    P=131, 4096 and 16384 (see below); the joint at P=4096 (full copies in
+    global memory, z exchanged by pulls, edge-end records overflowing) and
+    P=9216 (owned state in global memory too); the BA at K=8 with P=768
+    (edge-end records overflowing), P=1536 (full copies in global memory)
+    and P=2048 (owned state in global memory).
     Each case checks that its launch took the plan it is meant to force
     (the kernel's header)."""
     from nrslam_tpu_torch.bench_problem import ba_problem, solver_problem
@@ -420,6 +548,56 @@ def overflow_phase(dev):
         if not all(want[f] for f in forced):
             raise AssertionError(f"{name} {label}: the launch did not take "
                                  f"the plan it was meant to force {forced}")
+
+    # Kernel 1: a plan with points in shared memory forced at P=768 on the
+    # frame's problem, then the sizes that take each plan by default (P=131
+    # ragged in registers, 4096 in shared memory, 16384 also in global
+    # memory) on the same scene made rigid, all under the same-device gate;
+    # then P=16384 on the deformed scene. There the unmodelled flow (up to
+    # ~8 px) leaves points at the 5.99 re-level threshold, so float32
+    # summation order alone moves the solve (the plain driver on the CPU
+    # under a permutation of the points: up to 4.7e-4, rigid <= 3.3e-6):
+    # that case is held to 3x the plain driver's own spread on the card
+    # under SPREAD_PERMS seeded permutations of the same problem (never
+    # below the same-device gate), and both readings are printed.
+    from nrslam_tpu_torch.solver import pose_only_cuda as poc
+    for P, deform, threads, where in ((768, 0.05, 64, "shared"),
+                                      (131, 0.0, None, "registers"),
+                                      (4096, 0.0, None, "shared"),
+                                      (16384, 0.0, None, "global"),
+                                      (16384, 0.05, None, "global")):
+        cam, T0, X, obs, valid, _ = solver_problem(
+            "pinhole", device=dev, P=P, with_pairs=False, deform_amp=deform)
+        prep = poc.prepare(cam, T0, X, obs, valid, threads=threads)
+        pl = prep.plan
+        label = (f"pinhole P={P} {'rigid' if deform == 0 else 'deformed'} "
+                 f"threads={pl.threads} ({where})")
+        out = poc.launch(prep)
+        T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
+        dq, dt = quat_err(out[:4], T_p.q), float(torch.linalg.norm(
+            out[4:7] - T_p.t))
+        check_deterministic(f"pose_only {label}", lambda p: (poc.launch(p),),
+                            prep)
+        ms = cuda_ms(lambda: poc.launch(prep), warmup=1, reps=5)
+        tol, gate = SAME_DEVICE_POSE_TOL, "same-device gate"
+        if deform and P > 768:
+            sq, st = perm_spread(pose_only.camera_pose_optimization_plain,
+                                 cam, T0, X, obs, valid, T_p, SPREAD_PERMS)
+            tol = max(SAME_DEVICE_POSE_TOL, 3 * max(sq, st))
+            gate = (f"3x the plain driver's spread under {SPREAD_PERMS} "
+                    f"permutations on this card, |dq|={sq:.3e} "
+                    f"|dt|={st:.3e}")
+        print(f"[overflow] pose_only {label}: plan {pl._asdict()}, "
+              f"|dq|={dq:.3e} |dt|={dt:.3e} (tol {tol:.3e}, {gate}), "
+              f"kernel alone {ms:.4f} ms")
+        took = {"registers": pl.n_sh == pl.n_gl == 0,
+                "shared": pl.n_sh > 0 and pl.n_gl == 0,
+                "global": pl.n_gl > 0}[where]
+        if not took:
+            raise AssertionError(f"pose_only {label}: the plan does not keep "
+                                 f"points in {where} memory")
+        if not (dq < tol and dt < tol):
+            raise AssertionError(f"pose_only {label} disagrees with plain")
 
     for P, forced in ((4096, ("full", "records")), (9216, ("owned",))):
         cam, T0, X, obs, valid, pairs = solver_problem("pinhole", device=dev,
@@ -747,17 +925,23 @@ def system_witness(dev, card: str):
 
 
 def time_wrappers(dev, card: str):
-    """The joint and BA wrapper calls of the package imported (from this
-    checkout, or from another commit's unpacked tree given on the command
-    line) at the main-path shapes: median of 20 after 3 warm-ups, CUDA
-    events. Run it for two trees in one call to compare them on one card."""
+    """The pose-only, joint and BA wrapper calls of the package imported
+    (from this checkout, or from another commit's unpacked tree given on the
+    command line) at the main-path shapes (pose-only also at the init
+    refine's P=1024): median of 20 after 3 warm-ups, CUDA events. Run it for
+    two trees in one call to compare them on one card."""
     from nrslam_tpu_torch.bench_problem import ba_problem, solver_problem
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation as pd
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only
+    from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
 
     out = []
+    for kind, P in (("pinhole", 768), ("kb8", 768), ("pinhole", 1024)):
+        cam, T0, X, obs, valid, _ = solver_problem(kind, device=dev, P=P)
+        out.append((f"pose-only {kind} P={P}", cuda_ms(
+            lambda: pose_only_cuda.camera_pose_optimization_cuda(
+                cam, T0, X, obs, valid))))
     for kind in ("pinhole", "kb8"):
         cam, T0, X, obs, valid, pairs = solver_problem(kind, device=dev)
         seed = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
@@ -777,29 +961,31 @@ def time_wrappers(dev, card: str):
 def refine_kernel_check(inputs, rec):
     """Kernel 1 vs its plain version on the inputs the main path's two-view
     refinement gave it (P = max_features, only triangulated points valid),
-    at the same-device gate; the first solve timed."""
+    at the same-device gate, two launches bit-identical; the first solve
+    timed, bare launch and wrapper."""
     from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
 
     r = rec["pose_only"]
     for n, (cam, T0, X, obs, valid) in enumerate(inputs):
-        T_k = pose_only_cuda.camera_pose_optimization_cuda(cam, T0, X, obs,
-                                                           valid)
-        T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
-        dq, dt = quat_err(T_k.q, T_p.q), float(torch.linalg.norm(T_k.t - T_p.t))
-        print(f"[kernel] pose_only init refine solve {n}: P={X.shape[0]} "
-              f"valid={int(valid.sum())} |dq|={dq:.3e} |dt|={dt:.3e} "
-              f"(tol {SAME_DEVICE_POSE_TOL:.0e})")
-        if not (dq < SAME_DEVICE_POSE_TOL and dt < SAME_DEVICE_POSE_TOL):
-            raise AssertionError(f"pose_only init refine solve {n} disagrees "
-                                 "with plain")
-        r["err"] = max(r["err"], dq, float(torch.max(torch.abs(T_k.t - T_p.t))))
-    cam, T0, X, obs, valid = inputs[0]
+        err, steps, prep, _ = check_pose_only(
+            f"init refine solve {n} P={X.shape[0]} valid={int(valid.sum())}",
+            cam, T0, X, obs, valid)
+        r["err"] = max(r["err"], err)
+        if n == 0:
+            first = (cam, T0, X, obs, valid, steps, prep)
+    cam, T0, X, obs, valid, steps, prep = first
+    ms_a = cuda_ms(lambda: pose_only_cuda.launch(prep))
     ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
         cam, T0, X, obs, valid))
     ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
         cam, T0, X, obs, valid))
-    print(f"[kernel] pose_only init refine: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms (P={X.shape[0]})")
+    flops = pose_only_flops(steps, int(valid.sum()))
+    b_ms, by = bound(flops, pose_only_bytes(prep))
+    print(f"[kernel] pose_only init refine: kernel alone {ms_a:.4f} ms, "
+          f"wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms (P={X.shape[0]}); "
+          f"{steps} LM steps, {1e3 * ms_a / pose_only_passes(steps):.3f} us "
+          f"per pass; "
+          f"bound {b_ms:.6f} ms ({by}), kernel/bound {ms_a / b_ms:.0f}")
 
 
 def main():
@@ -832,6 +1018,9 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[ptxas] {src}: {line.strip()}")
+    if not wrappers:
+        check_no_spills(kernels.build_log.get("pose_only.cu", ""),
+                        "pose_only_kernel", 2)
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()

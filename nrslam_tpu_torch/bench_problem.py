@@ -84,22 +84,24 @@ def _knn(X, K: int, rows: int = 1024):
 
 
 def solver_problem(kind: str = cameras.PINHOLE, device=None,
-                   P: int = 768):
+                   P: int = 768, with_pairs: bool = True,
+                   deform_amp: float = 0.05):
     """A seeded tracking-solver problem at the frame's shapes: P=768 (or
     the 320x240 slice's 384) landmarks in a 2.4 x 1.8 x 1.5 box ~3 units
-    ahead, a smooth deformation (amplitude 0.05), observations from a known
+    ahead, a smooth deformation (amplitude ``deform_amp``, 0.05; 0 gives a
+    rigid scene), observations from a known
     pose with 0.3 px noise, 5% gross outliers and 10% masked points, and a
     K=11 nearest-neighbour pair table with RBF weights (P*K directed
     entries; after ``compact_pairs`` E = (ceil(K/2)+1) P, 5376 at P=768).
 
     Returns (cam, T_seed (identity), X [P,3], obs [P,2], valid [P],
-    pairs (raw, before compaction)), on the card unless ``device`` says
-    otherwise.
+    pairs (raw, before compaction; None when ``with_pairs`` is False, which
+    skips the kNN)), on the card unless ``device`` says otherwise.
     """
     from nrslam_tpu_torch.solver import pose_deformation as pd
 
     device = resolve(device)
-    K, deform_amp = 11, 0.05
+    K = 11
     rng = np.random.default_rng(0)
     X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
                   rng.uniform(2.5, 4.0, P)], -1).astype(np.float32)
@@ -121,6 +123,9 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None,
     noise[outlier] += rng.normal(0.0, 40.0, (int(outlier.sum()), 2))
     obs = obs + torch.as_tensor(noise, device=device)
     valid = torch.as_tensor(rng.random(P) >= 0.1, device=device)
+    T0, X_dev = se3.identity(device=device), torch.as_tensor(X, device=device)
+    if not with_pairs:
+        return cam, T0, X_dev, obs, valid, None
 
     idx, dist = _knn(X, K)
     sigma = np.median(dist) * 3
@@ -129,8 +134,7 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None,
         torch.as_tensor(idx, device=device), torch.as_tensor(w, device=device),
         torch.as_tensor(dist, device=device),
         torch.ones((P, K), dtype=torch.bool, device=device))
-    return (cam, se3.identity(device=device), torch.as_tensor(X, device=device),
-            obs, valid, pairs)
+    return cam, T0, X_dev, obs, valid, pairs
 
 
 def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,

@@ -5,7 +5,7 @@
 // and pinhole / Kannala-Brandt-8 projection with its analytic 2x3 Jacobian.
 // Everything is float32 with the same formulas (and operation order where it
 // matters) as the Pallas kernels, so results match the plain PyTorch drivers
-// to float tolerance. Also holds the block-wide reductions both kernels use.
+// to float tolerance. Also holds the pose-only kernel's block reduction.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -194,40 +194,52 @@ __device__ inline void inv6(const float H[36], float lam, float o[36]) {
 // J = (d pu/dX, d pu/dY, d pu/dZ, d pv/dX, d pv/dY, d pv/dZ).
 // ---------------------------------------------------------------------------
 
-__device__ inline void project_with_jacobian(int kind, const float cam[8],
-                                             float x, float y, float z,
-                                             float* pu, float* pv,
-                                             float J[6]) {
+template <int Kind>
+__device__ __forceinline__ void project_with_jacobian(const float cam[8],
+                                                      float x, float y,
+                                                      float z, float* pu,
+                                                      float* pv, float J[6]) {
   const float fx = cam[0], fy = cam[1], cx = cam[2], cy = cam[3];
-  if (kind == kPinhole) {
+  if constexpr (Kind == kPinhole) {
     const float invz = 1.0f / z;
     *pu = fx * x * invz + cx;
     *pv = fy * y * invz + cy;
     const float invz2 = invz * invz;
     J[0] = fx * invz; J[1] = 0.0f; J[2] = -fx * x * invz2;
     J[3] = 0.0f; J[4] = fy * invz; J[5] = -fy * y * invz2;
-    return;
+  } else {
+    const float k0 = cam[4], k1 = cam[5], k2 = cam[6], k3 = cam[7];
+    const float x2 = x * x, y2 = y * y, z2 = z * z;
+    const float r2 = x2 + y2;
+    const float r = sqrtf(r2);
+    const float r3 = r2 * r;
+    const float theta = atan2f(r, z);
+    const float t2 = theta * theta, t4 = t2 * t2, t6 = t4 * t2, t8 = t4 * t4;
+    const float f = theta * (1 + k0 * t2 + k1 * t4 + k2 * t6 + k3 * t8);
+    const float fd = 1 + 3 * k0 * t2 + 5 * k1 * t4 + 7 * k2 * t6 + 9 * k3 * t8;
+    const float psi_c = x / fmaxf(r, 1e-12f);
+    const float psi_s = y / fmaxf(r, 1e-12f);
+    *pu = fx * f * psi_c + cx;
+    *pv = fy * f * psi_s + cy;
+    const float denom = r2 * (r2 + z2);
+    J[0] = fx * (fd * z * x2 / denom + f * y2 / r3);
+    J[1] = fx * (fd * z * x * y / denom - f * x * y / r3);
+    J[2] = -fx * fd * x / (r2 + z2);
+    J[3] = fy * (fd * z * x * y / denom - f * x * y / r3);
+    J[4] = fy * (fd * z * y2 / denom + f * x2 / r3);
+    J[5] = -fy * fd * y / (r2 + z2);
   }
-  const float k0 = cam[4], k1 = cam[5], k2 = cam[6], k3 = cam[7];
-  const float x2 = x * x, y2 = y * y, z2 = z * z;
-  const float r2 = x2 + y2;
-  const float r = sqrtf(r2);
-  const float r3 = r2 * r;
-  const float theta = atan2f(r, z);
-  const float t2 = theta * theta, t4 = t2 * t2, t6 = t4 * t2, t8 = t4 * t4;
-  const float f = theta * (1 + k0 * t2 + k1 * t4 + k2 * t6 + k3 * t8);
-  const float fd = 1 + 3 * k0 * t2 + 5 * k1 * t4 + 7 * k2 * t6 + 9 * k3 * t8;
-  const float psi_c = x / fmaxf(r, 1e-12f);
-  const float psi_s = y / fmaxf(r, 1e-12f);
-  *pu = fx * f * psi_c + cx;
-  *pv = fy * f * psi_s + cy;
-  const float denom = r2 * (r2 + z2);
-  J[0] = fx * (fd * z * x2 / denom + f * y2 / r3);
-  J[1] = fx * (fd * z * x * y / denom - f * x * y / r3);
-  J[2] = -fx * fd * x / (r2 + z2);
-  J[3] = fy * (fd * z * x * y / denom - f * x * y / r3);
-  J[4] = fy * (fd * z * y2 / denom + f * x2 / r3);
-  J[5] = -fy * fd * y / (r2 + z2);
+}
+
+// The camera kind chosen at run time (the cluster kernels).
+__device__ inline void project_with_jacobian(int kind, const float cam[8],
+                                             float x, float y, float z,
+                                             float* pu, float* pv,
+                                             float J[6]) {
+  if (kind == kPinhole)
+    project_with_jacobian<kPinhole>(cam, x, y, z, pu, pv, J);
+  else
+    project_with_jacobian<kKB8>(cam, x, y, z, pu, pv, J);
 }
 
 // Pose Jacobian rows of the reprojection residual e = obs - pi(Xc):
@@ -255,43 +267,55 @@ __device__ inline float huber_rho(float chi2, float th) {
 }
 
 // ---------------------------------------------------------------------------
-// Block reductions. Every thread passes its N partials; after the call
-// out[0..N) holds the block totals (visible to all threads). Needs
-// red[32 * N] shared floats, N <= blockDim.x, blockDim.x a multiple of 32.
-// Contains __syncthreads: call from uniform control flow only.
+// Reductions
 // ---------------------------------------------------------------------------
 
-template <int N>
-__device__ inline void block_sum(float (&v)[N], float* red, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One step of warp_reduce_scatter32: each lane keeps the half of its first
+// 2S values whose index has bit S equal to its own lane's and adds its
+// partner's (lane ^ S) copy of that half; S is a compile-time constant, so
+// every index is too and v stays in registers.
+template <int S>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[32],
+                                                    int lane) {
+  const bool upper = (lane & S) != 0;
 #pragma unroll
-  for (int k = 0; k < N; ++k)
-    for (int off = 16; off > 0; off >>= 1)
-      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < N; ++k) red[warp * N + k] = v[k];
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float s = 0.0f;
-    const int nw = blockDim.x >> 5;
-    for (int w = 0; w < nw; ++w) s += red[w * N + threadIdx.x];
-    out[threadIdx.x] = s;
+  for (int j = 0; j < S; ++j) {
+    const float send = upper ? v[j] : v[j + S];
+    const float keep = upper ? v[j + S] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, S);
   }
-  __syncthreads();
 }
 
-__device__ inline float block_max(float v, float* red) {
+// Reduce-scatter over a warp: on return lane l's v[0] holds the sum over
+// the warp's lanes of their v[l], in a fixed order; 16 + 8 + 4 + 2 + 1 =
+// 31 shuffles.
+__device__ __forceinline__ void warp_reduce_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  reduce_scatter_step<16>(v, lane);
+  reduce_scatter_step<8>(v, lane);
+  reduce_scatter_step<4>(v, lane);
+  reduce_scatter_step<2>(v, lane);
+  reduce_scatter_step<1>(v, lane);
+}
+
+// Every thread's v[0..32) summed over the block; on return every thread
+// holds the same bits of the first N totals in tot. red is [warps][32]
+// shared floats that no thread reads until after the next barrier of its
+// caller (alternate two buffers between calls). One __syncthreads(): call
+// from uniform control flow; blockDim.x a multiple of 32.
+template <int N>
+__device__ __forceinline__ void block_allreduce(float (&v)[32], float* red,
+                                                float (&tot)[N]) {
+  static_assert(N <= 32, "at most 32 sums");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) red[warp] = v;
+  warp_reduce_scatter32(v);
+  red[warp * 32 + lane] = v[0];
   __syncthreads();
-  float m = red[0];
+  float s = red[lane];
   const int nw = blockDim.x >> 5;
-  for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
+  for (int w = 1; w < nw; ++w) s += red[w * 32 + lane];
+#pragma unroll
+  for (int k = 0; k < N; ++k) tot[k] = __shfl_sync(0xffffffffu, s, k);
 }
 
 }  // namespace nrslam

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -31,8 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# ptxas's report (registers, shared memory, spills) of each source compiled
-# by this process, by file name; empty when the library was already built.
+# ptxas's report (registers, shared memory, spills) of each source of the
+# loaded library, by file name: kept beside the library when it is built
+# (``.log``, JSON) and read back when a later process loads it.
 build_log: dict = {}
 
 _P = ctypes.c_void_p
@@ -40,7 +42,8 @@ _I = ctypes.c_int
 
 # C signatures: name -> (restype, argtypes).
 _SIGNATURES = {
-    "nrslam_pose_only": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "nrslam_pose_only": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+    "nrslam_pose_only_limits": (_I, [_I, _P]),
     "nrslam_pose_deformation": (_I, [_P] * 17 + [_I] * 10 + [_P]),
     "nrslam_pose_deformation_scratch": (ctypes.c_long, [_I, _I]),
     "nrslam_pose_deformation_blocks": (_I, []),
@@ -95,6 +98,7 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library. Raises on failure."""
     cu, _ = _sources()
     so = BUILD_DIR / f"libnrslam_kernels_{_digest()}.so"
+    log = so.with_suffix(".log")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -108,7 +112,10 @@ def library() -> ctypes.CDLL:
             _run([("link", subprocess.Popen(
                 [nvcc, "-shared", "-o", linked, *objs], text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))])
+            log.write_text(json.dumps(build_log))
             os.replace(linked, so)
+    elif log.exists():
+        build_log.update(json.loads(log.read_text()))
     lib = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
