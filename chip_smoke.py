@@ -65,7 +65,26 @@ prints its seconds):
   8. the pose-only kernel against its plain version on the inputs the main
      path's two-view refinement gave it (P = 1024 features, only the
      triangulated ones valid), at the same-device gate, and timed (bare
-     launch and wrapper).
+     launch and wrapper);
+  9. [disk-hamlyn], the disk path at full width: datasets/hamlyn_export
+     writes 60 stereo frames of the 640x480 scene (deformation 0.02) as
+     PNGs, then ``python -m nrslam_tpu_torch.apps.run_slam --dataset
+     hamlyn`` runs in process on the card (P=768, stereo evaluation, RMSE
+     file, PLY, checkpoint): TRACKING, >= 30 tracked frames, median stereo
+     RMSE finite and < 0.5, one finite RMSE line per tracked frame, a
+     non-empty PLY, launches as the path dictates, the checkpoint restored
+     bit for bit; then the NCC matcher on the card against the CPU on the
+     last frame's inputs (ok masks agree on >= 99% of slots, relative
+     median depth difference <= 1e-4); ms per init / keyframe /
+     non-keyframe frame and of the stereo evaluation;
+ 10. [disk-simulation]: datasets/simulation_export writes a 320x240 KB8
+     scene (40 frames, 16-bit PNG depth), the CLI runs it on the card
+     through Settings' KannalaBrandt8 branch and a masker of a
+     BorderFilter and a PredefinedFilter read from a PNG (P=384, viz
+     dumps): TRACKING, finite median depth RMSE, the predefined mask on
+     the card, launches as the path dictates, the dumps read back; the
+     native loader, where it builds, decodes the exported frames as png.py
+     and the port's RGB -> gray do (else the compiler's reason).
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the last line is {"ok": true, "device":
@@ -75,7 +94,9 @@ bare launch on prepared inputs); the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -747,9 +768,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    pose_only_cuda.launches = 0
-    pdc.launches = 0
-    bac.launches = 0
+    reset_launches()
     n = 50
     t0 = time.perf_counter()
     for i in range(n):
@@ -768,10 +787,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
           f"launches={launches}; warm-up frames 3-4 had no host syncs")
     if lost or n3d < 10 or not finite:
         raise AssertionError("slice at scale: map lost or non-finite")
-    if launches != {"pose_only": n, "pose_deformation": n,
-                    "bundle_adjustment": n // 5}:
-        raise AssertionError(f"kernel launch counts {launches} != {n} / "
-                             f"{n // 5} keyframes")
+    check_launches(f"scale {W}x{H}", n, n // 5)
 
 
 def run_system(dev, n: int = 60):
@@ -795,10 +811,7 @@ def run_system(dev, n: int = 60):
     config = Config(max_points=768, max_new_keypoints=256,
                     rad_per_pixel=1.0 / scene.fx)
     sysm = system.System(cam, config)
-    pose_only_cuda.launches = 0
-    pdc.launches = 0
-    bac.launches = 0
-    initializer.refines = 0
+    reset_launches()
     ms = {"init": [], "keyframe": [], "non-keyframe": []}
     est, gt, poses, init_frame, out = [], [], {}, None, {}
     refine_inputs = []
@@ -865,11 +878,7 @@ def system_at_scale(dev, card: str, n: int = 60):
     if not run["tracking"] or run["n3d"] < 10 or not run["finite"]:
         raise AssertionError("system at scale: not tracking, < 10 tracked "
                              "3D points or non-finite positions")
-    want = {"pose_only": steady + 3 * refines, "pose_deformation": steady,
-            "bundle_adjustment": len(ms["keyframe"])}
-    if launches != want or not all(launches.values()):
-        raise AssertionError(f"system at scale: launches {launches}, "
-                             f"expected {want}")
+    check_launches("system", steady, len(ms["keyframe"]))
     if len(run["refine_inputs"]) != 3 * refines:
         raise AssertionError(f"{len(run['refine_inputs'])} pose-only solves "
                              f"on init frames, expected 3 x {refines} "
@@ -988,6 +997,294 @@ def refine_kernel_check(inputs, rec):
           f"bound {b_ms:.6f} ms ({by}), kernel/bound {ms_a / b_ms:.0f}")
 
 
+class FrameTimer:
+    """Times the System's entry points while a CLI run drives them, with a
+    synchronize before and after each call: per frame its kind (init,
+    keyframe, non-keyframe), its ms, and the ms of the evaluation on top of
+    ``track_image`` (the stereo matcher and its RMSE, or the depth RMSE)."""
+
+    def __init__(self, system_mod):
+        self.system_mod = system_mod
+        self.frames = []   # (kind, ms, evaluation ms, evaluated)
+
+    def __enter__(self):
+        System = self.system_mod.System
+        self.saved = {name: getattr(System, name) for name in (
+            "track_image", "track_image_with_depth",
+            "track_image_with_stereo")}
+        inner = {}
+        track = self.saved["track_image"]
+
+        def track_image(system, img):
+            t0 = time.perf_counter()
+            out = track(system, img)
+            torch.cuda.synchronize()
+            inner["ms"] = 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def outer(fn):
+            def timed(system, *args, **kwargs):
+                was_init = system.status != self.system_mod.TRACKING
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(system, *args, **kwargs)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                kind = "init" if was_init else (
+                    "keyframe" if out["keyframe"] else "non-keyframe")
+                self.frames.append((kind, ms, ms - inner["ms"],
+                                    "stereo_rmse" in out
+                                    or "depth_rmse" in out))
+                return out
+            return timed
+
+        System.track_image = track_image
+        System.track_image_with_depth = outer(
+            self.saved["track_image_with_depth"])
+        System.track_image_with_stereo = outer(
+            self.saved["track_image_with_stereo"])
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.system_mod.System, name, fn)
+
+    def count(self, *kinds) -> int:
+        return sum(kind in kinds for kind, *_ in self.frames)
+
+    def summary(self) -> str:
+        med = {k: statistics.median([ms for kind, ms, *_ in self.frames
+                                     if kind == k] or [float("nan")])
+               for k in ("init", "keyframe", "non-keyframe")}
+        evals = [e for *_, e, done in self.frames if done]
+        return (", ".join(f"{k} frames {self.count(k)} median {v:.2f} ms"
+                          for k, v in med.items())
+                + f"; evaluation on {len(evals)} tracked frames median "
+                f"{statistics.median(evals or [float('nan')]):.2f} ms; "
+                f"System calls {sum(ms for _, ms, *_ in self.frames) / 1e3:.2f}"
+                " s in all")
+
+
+def reset_launches():
+    from nrslam_tpu_torch.slam import initializer
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    pose_only_cuda.launches = pdc.launches = bac.launches = 0
+    initializer.refines = 0
+
+
+def check_launches(label: str, steady: int, keyframes: int) -> dict:
+    """The kernels' launch counts of the run since reset_launches(), held
+    to what the path dictates: the pose-only kernel once per steady frame
+    and 3 times per two-view refinement, the joint once per steady frame,
+    the BA once per keyframe."""
+    from nrslam_tpu_torch.slam import initializer
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    launches = {"pose_only": pose_only_cuda.launches,
+                "pose_deformation": pdc.launches,
+                "bundle_adjustment": bac.launches}
+    want = {"pose_only": steady + 3 * initializer.refines,
+            "pose_deformation": steady, "bundle_adjustment": keyframes}
+    print(f"[{label}] launches {launches} ({initializer.refines} two-view "
+          f"refinements, {steady} steady frames, {keyframes} keyframes)")
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return launches
+
+
+def scratch_dir():
+    """A temporary directory inside the checkout (under the gitignored
+    _dev/), removed when the phase ends."""
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "_dev"), exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_dev"))
+
+
+def disk_hamlyn(dev, card: str):
+    """The disk path at full width: the Hamlyn exporter, then the CLI on
+    the card with stereo evaluation, RMSE file, PLY and checkpoint; the NCC
+    matcher on the card against the CPU on the last frame's inputs."""
+    from nrslam_tpu_torch import convert
+    from nrslam_tpu_torch.apps import run_slam
+    from nrslam_tpu_torch.config import Settings
+    from nrslam_tpu_torch.datasets import hamlyn_export, loaders, synthetic
+    from nrslam_tpu_torch.ops import stereo
+    from nrslam_tpu_torch.slam import system
+    from nrslam_tpu_torch.utils import checkpoint, tree
+
+    n = 60
+    with scratch_dir() as tmp:
+        scene = synthetic.SceneConfig(height=480, width=640, deform_amp=0.02)
+        t0 = time.perf_counter()
+        root = hamlyn_export.export_hamlyn_stereo_dataset(
+            os.path.join(tmp, "hamlyn"), scene, n_frames=n, device=dev)
+        t_export = time.perf_counter() - t0
+        files = {k: os.path.join(tmp, k) for k in ("rmse.txt", "map.ply",
+                                                   "ck")}
+        reset_launches()
+        t0 = time.perf_counter()
+        with FrameTimer(system) as timer:
+            summary, slam = run_slam.main([
+                "--dataset", "hamlyn", "--dataset_path", str(root),
+                "--settings_path", str(root / "settings.yaml"),
+                "--end_frame", str(n), "--max_points", "768",
+                "--save_rmse", files["rmse.txt"],
+                "--save_ply", files["map.ply"],
+                "--checkpoint_dir", files["ck"]])
+        t_run = time.perf_counter() - t0
+        launches = check_launches("disk-hamlyn",
+                                  timer.count("keyframe", "non-keyframe"),
+                                  timer.count("keyframe"))
+        print(f"[disk-hamlyn] 640x480 P=768 on {card}: {n} stereo pairs "
+              f"exported in {t_export:.2f} s, run_slam {t_run:.2f} s: "
+              f"{json.dumps(summary)}; {timer.summary()}")
+        rmse = [float(v) for v in open(files["rmse.txt"]).read().split()]
+        ply = open(files["map.ply"]).read()
+        n_vertices = int(ply.split("element vertex ")[1].split()[0])
+        back = checkpoint.restore(files["ck"], slam.state)
+        same = tree.tree_map(torch.equal, back, slam.state)
+        leaves = []
+        tree.tree_map(leaves.append, same)
+        print(f"[disk-hamlyn] RMSE file {len(rmse)} lines, PLY "
+              f"{n_vertices} vertices, checkpoint {len(leaves)} tensors "
+              f"restored, all equal={all(leaves)}")
+        med = summary["median_stereo_rmse"]
+        if not (summary["status"] == system.TRACKING
+                and summary["frames_tracked"] >= 30
+                and med is not None and math.isfinite(med) and med < 0.5):
+            raise AssertionError(f"disk-hamlyn: {summary}")
+        if (len(rmse) != summary["frames_tracked"]
+                or not all(math.isfinite(v) for v in rmse)):
+            raise AssertionError("disk-hamlyn: the RMSE file does not hold "
+                                 "one finite line per tracked frame")
+        if n_vertices == 0 or not all(leaves) or len(leaves) < 40:
+            raise AssertionError("disk-hamlyn: empty PLY or checkpoint not "
+                                 "restored bit for bit")
+
+        # The NCC matcher on the card and on the CPU, last frame's inputs.
+        ds = loaders.Hamlyn(str(root))
+        st = slam.state
+        left = slam._preprocess(ds.get_image(n - 1))
+        right = slam._preprocess(ds.get_right_image(n - 1))
+        valid = st.slot_used & (st.status == 0)
+        bf = Settings(str(root / "settings.yaml"), dev).bf
+        args = (slam.cam, bf, left, right, st.keypoints, valid)
+        X_g, ok_g = stereo.stereo_pattern_matching(*args)
+        X_c, ok_c = stereo.stereo_pattern_matching(
+            convert.to_device(slam.cam, "cpu"), bf, left.cpu(), right.cpu(),
+            st.keypoints.cpu(), valid.cpu())
+        agree = float((ok_g.cpu() == ok_c).float().mean())
+        both = ok_g.cpu() & ok_c
+        rel = (torch.abs(X_g[..., 2].cpu() - X_c[..., 2])
+               / torch.abs(X_c[..., 2]))[both]
+        med_rel = float(torch.median(rel)) if both.any() else float("nan")
+        ms_ncc = cuda_ms(lambda: stereo.stereo_pattern_matching(*args),
+                         warmup=2, reps=10)
+        print(f"[disk-hamlyn] NCC stereo, card against CPU on frame {n - 1} "
+              f"({int(valid.sum())} valid slots, D=96, 11x11): ok agree "
+              f"{agree:.4f} (gate 0.99), {int(both.sum())} accepted by both, "
+              f"relative depth difference median {med_rel:.3e} max "
+              f"{float(rel.max()) if both.any() else float('nan'):.3e} "
+              f"(gate median 1e-4); matcher alone {ms_ncc:.3f} ms on the card")
+        if not (agree >= 0.99 and both.any() and med_rel <= 1e-4):
+            raise AssertionError("disk-hamlyn: NCC card against CPU outside "
+                                 "the gates")
+    return launches
+
+
+def disk_simulation(dev, card: str):
+    """The Simulation layout on the card: a KB8 scene exported with 16-bit
+    PNG depth, the CLI through Settings' KannalaBrandt8 branch and a masker
+    of a BorderFilter and a PredefinedFilter (an endoscope-corner mask read
+    from a PNG, which must reach the card with the camera), with viz dumps;
+    the native loader's decode of the exported frames, where it builds."""
+    from nrslam_tpu_torch.apps import run_slam
+    from nrslam_tpu_torch.datasets import (native_loader, png,
+                                           simulation_export, synthetic)
+    from nrslam_tpu_torch.ops import image as image_ops
+    from nrslam_tpu_torch.slam import system
+
+    n = 40
+    with scratch_dir() as tmp:
+        scene = synthetic.SceneConfig(height=240, width=320, deform_amp=0.02,
+                                      camera_kind="kb8")
+        t0 = time.perf_counter()
+        root = simulation_export.export_simulation_dataset(
+            os.path.join(tmp, "sim"), scene, n_frames=n, device=dev,
+            filters=("BorderFilter 4 4", "PredefinedFilter mask.png"))
+        t_export = time.perf_counter() - t0
+        H, W = scene.height, scene.width
+        corners = torch.full((H, W), 255, dtype=torch.uint8)
+        for ys in (slice(0, 24), slice(-24, None)):
+            for xs in (slice(0, 24), slice(-24, None)):
+                corners[ys, xs] = 0
+        png.write(root / "mask.png", corners.numpy())
+        viz = os.path.join(tmp, "viz")
+        reset_launches()
+        t0 = time.perf_counter()
+        with FrameTimer(system) as timer:
+            summary, slam = run_slam.main([
+                "--dataset", "simulation", "--dataset_path", str(root),
+                "--settings_path", str(root / "settings.yaml"),
+                "--end_frame", str(n), "--max_points", "384",
+                "--save_viz", viz])
+        t_run = time.perf_counter() - t0
+        check_launches("disk-simulation",
+                       timer.count("keyframe", "non-keyframe"),
+                       timer.count("keyframe"))
+        dumps = sorted(f for f in os.listdir(viz) if f.endswith(".png"))
+        shapes = {png.read(os.path.join(viz, f)).shape for f in dumps}
+        print(f"[disk-simulation] 320x240 KB8 P=384 on {card}: {n} frames "
+              f"exported in {t_export:.2f} s, run_slam {t_run:.2f} s: "
+              f"{json.dumps(summary)}; {timer.summary()}; camera "
+              f"{slam.cam.kind}, masker {sorted(slam.masker.filters)}; "
+              f"{len(dumps)} viz PNGs read back, shapes {shapes}")
+        med = summary["median_rmse"]
+        masks = slam.masker.get_all_masks(torch.zeros(H, W, device=dev))
+        if not (summary["status"] == system.TRACKING and slam.cam.kind == "kb8"
+                and med is not None and math.isfinite(med)
+                and set(masks) == {"BorderFilter", "PredefinedFilter",
+                                   "Global"}
+                and masks["PredefinedFilter"].device == dev
+                and not bool(masks["PredefinedFilter"][0, 0])):
+            raise AssertionError(f"disk-simulation: {summary}, masks "
+                                 f"{sorted(masks)}")
+        if not dumps or shapes != {(H, W, 3)}:
+            raise AssertionError("disk-simulation: viz dumps missing")
+
+        available = native_loader.available()
+        print(f"[disk-simulation] native loader available: {available}")
+        if not available:
+            # The compiler's own message says what is missing.
+            cxx = shutil.which(os.environ.get("CXX", "g++"))
+            why = "no C++ compiler"
+            if cxx:
+                proc = subprocess.run(
+                    [cxx, *native_loader.CXX_FLAGS, "-o", os.devnull,
+                     str(native_loader.SOURCE), *native_loader.LIBS],
+                    capture_output=True, text=True)
+                why = " | ".join((proc.stderr + proc.stdout).splitlines()[:3])
+            print(f"[disk-simulation] native loader build: {why}")
+        else:
+            names = [os.path.join(root, "rgb", f"image_{i:04d}.png")
+                     for i in range(n)]
+            with native_loader.PrefetchLoader(names) as frames:
+                same = [bool((f == image_ops.rgb_to_gray(torch.from_numpy(
+                    png.imread_color(p))).numpy()).all())
+                    for p, f in zip(names, frames)]
+            print(f"[disk-simulation] native decode equal to png.py + "
+                  f"rgb_to_gray on {sum(same)} of {n} frames")
+            if len(same) != n or not all(same):
+                raise AssertionError("disk-simulation: the native loader's "
+                                     "decode differs from png.py's")
+
+
 def main():
     args = sys.argv[1:]
     witness = args == ["--witness"]
@@ -1044,6 +1341,8 @@ def main():
                                     card)
     phase("pose-only at the init refine", refine_kernel_check, refine_inputs,
           rec)
+    phase("disk-hamlyn", disk_hamlyn, dev, card)
+    phase("disk-simulation", disk_simulation, dev, card)
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
 
     sources = {

@@ -80,8 +80,16 @@ def camera_pose(frame_idx, config: SceneConfig, device=None) -> se3.SE3:
 def render_frame(frame_idx, config: SceneConfig, device=None):
     """Render (gray [H, W], depth [H, W], Tcw) for a frame index, on the
     card unless ``device`` says otherwise."""
-    device = resolve(device)
-    Tcw = camera_pose(frame_idx, config, device)
+    return render_frame_at(camera_pose(frame_idx, config, device), frame_idx,
+                           config)
+
+
+def render_frame_at(Tcw: se3.SE3, frame_time, config: SceneConfig):
+    """Render (gray, depth, Tcw) from an explicit camera pose at the scene
+    clock ``frame_time``, on the pose's device: a stereo pair is the left
+    pose and the left pose composed with a baseline offset
+    (datasets/hamlyn_export.py)."""
+    device = Tcw.q.device
     H, W = config.height, config.width
     cam = camera(config, device)
     Twc = se3.inverse(Tcw)
@@ -93,7 +101,7 @@ def render_frame(frame_idx, config: SceneConfig, device=None):
     rays_cam = cameras.unproject(cam, uv)
     rays_world = se3.quat_rotate(Twc.q[None], rays_cam)
     origin = Twc.t
-    t_f = torch.tensor(float(frame_idx), dtype=torch.float32, device=device)
+    t_f = torch.tensor(float(frame_time), dtype=torch.float32, device=device)
 
     s = torch.full((H * W,), config.base_depth, dtype=torch.float32,
                    device=device)

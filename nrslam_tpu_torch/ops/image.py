@@ -1,6 +1,6 @@
 """Image ops (counterpart of nrslam_tpu/ops/image.py): grayscale, CLAHE,
-pyramid, Scharr gradients, bilinear sampling, erosion / dilation and the
-Gaussian blur.
+pyramid, Scharr gradients, bilinear sampling and window gathers, erosion /
+dilation and the Gaussian blur.
 
 Float32 images in [0, 255], shape [H, W]; borders replicate (edge padding)
 exactly as the JAX package's shifted-slice stencils do. The outputs match
@@ -133,6 +133,18 @@ def bilinear_sample(img, uv):
     v11 = img[y0 + 1, x0 + 1]
     return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
             + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def gather_windows(img, centers, win: int):
+    """``win`` x ``win`` bilinear windows around continuous (x, y) centers
+    [..., 2]: [..., win, win] (or [..., win, win, C] for an [H, W, C]
+    image). A window spans ``center - (win - 1) / 2 .. center + (win - 1) /
+    2``."""
+    offs = (torch.arange(win, dtype=torch.float32, device=centers.device)
+            - (win - 1) * 0.5)
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    grid = torch.stack([ox, oy], dim=-1)                     # [win, win, 2]
+    return bilinear_sample(img, centers[..., None, None, :] + grid)
 
 
 def erode(mask, ksize: int):

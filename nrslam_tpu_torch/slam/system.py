@@ -5,6 +5,8 @@ nrslam_tpu/slam/system.py; reference system.{h,cc}).
 - ``System.track_image(img)``                    (system.cc:113-132)
 - ``System.track_image_with_depth(img, depth)``  (system.cc:162-187), which
   also runs the depth-RMSE evaluator on tracked frames.
+- ``System.track_image_with_stereo(left, right, bf)`` (system.cc:134-160),
+  which evaluates tracked frames against NCC stereo depth.
 
 One steady-state frame (``frame_step``) = pyramid + tracking + mapping, then
 the LOST freeze: once the collapse latch is set, every later frame returns
@@ -12,9 +14,6 @@ the old state unchanged (the reference exits at the collapse frame,
 tracking.cc:97-99). Steady frames read nothing back to the host except the
 LOST flag every ``lost_check_every`` frames; init frames read their reset
 and success flags once each.
-
-The stereo entry point (``track_image_with_stereo``,
-``bootstrap_map_stereo``) waits for ``ops/stereo.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ from nrslam_tpu_torch.eval import evaluator as evaluator_mod
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.ops import image as image_ops
 from nrslam_tpu_torch.ops import klt
+from nrslam_tpu_torch.ops import stereo as stereo_ops
 from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.slam import initializer as init_mod
 from nrslam_tpu_torch.slam import mapping as mapping_mod
@@ -90,6 +90,38 @@ def bootstrap_map(state, result: init_mod.InitializationResult, pyramid,
     refs = klt.set_reference(pyramid, state.keypoints, sel_ok,
                              config.klt_config)
     return state_mod.insert_temporal_snapshot(state._replace(refs=refs))
+
+
+def bootstrap_map_stereo(state, keypoints, landmarks, point_ok, track_ids,
+                         pyramid, config: Config, graph_sigma: float = 10.5):
+    """The initial map from stereo-triangulated landmarks
+    (Tracking::StereoMapInitialization, tracking.cc:216-289): metric
+    landmarks from a stereo matcher, scale 1, the stereo graph sigma 10.5
+    and a single keyframe."""
+    P = config.max_points
+    _, sel = state_mod.top_k_stable(point_ok.to(torch.float32), P)
+    sel_ok = point_ok[sel]
+    track_id = torch.where(sel_ok, track_ids[sel],
+                           torch.full_like(track_ids[sel], -1))
+    state = state._replace(
+        slot_used=sel_ok,
+        track_id=track_id,
+        has_3d=sel_ok,
+        positions=torch.where(sel_ok[:, None], landmarks[sel],
+                              torch.zeros_like(landmarks[sel])),
+        keypoints=torch.where(sel_ok[:, None], keypoints[sel],
+                              torch.zeros_like(keypoints[sel])),
+        status=torch.where(sel_ok, klt.TRACKED_WITH_3D,
+                           state_mod.NOT_IN_FRAME).to(torch.int32),
+        scale=torch.ones((), dtype=torch.float32, device=sel.device),
+        next_track_id=torch.max(track_id) + 1,
+    )
+    state = state._replace(graph=graph_mod.initialize(
+        state.graph, state.positions, sel_ok, graph_sigma))
+    refs = klt.set_reference(pyramid, state.keypoints, sel_ok,
+                             config.klt_config)
+    state = state_mod.insert_keyframe(state._replace(refs=refs))
+    return state_mod.insert_temporal_snapshot(state)
 
 
 def frame_step(state, gray, mask, cam: cameras.Camera, config: Config,
@@ -216,6 +248,27 @@ class System:
             out["depth_rmse"] = self.evaluator.evaluate(
                 self.state, self.cam, torch.as_tensor(depth,
                                                       device=self.device))
+        return out
+
+    def track_image_with_stereo(self, img_left, img_right,
+                                bf: float = 0.0) -> dict:
+        """Track the left image; with ``bf`` > 0, evaluate a tracked frame
+        against NCC stereo depth of its TRACKED_WITH_3D slots
+        (system.cc:134-160, whose evaluator call the reference compiles
+        out): ``stereo_rmse`` is the scale-aligned RMSE after the 1.5 IQR
+        pre-filter over the 0.9 best inliers (frame_evaluator.cc:138-162),
+        read back to the host."""
+        out = self.track_image(img_left)
+        if bf > 0 and self.status == TRACKING and self.state is not None:
+            st = self.state
+            valid = st.slot_used & (st.status == klt.TRACKED_WITH_3D)
+            gt3d, ok = stereo_ops.stereo_pattern_matching(
+                self.cam, bf, self._preprocess(img_left),
+                self._preprocess(img_right), st.keypoints, valid)
+            est = se3.apply(st.Tcw, st.positions)[..., 2]
+            out["stereo_rmse"] = float(evaluator_mod._scale_aligned_rmse(
+                est, gt3d[..., 2], ok, inlier_fraction=0.9,
+                iqr_reject=True))
         return out
 
     # -- initialisation -----------------------------------------------------

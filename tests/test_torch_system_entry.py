@@ -5,13 +5,15 @@ package's RANSAC draws injected into the port's ``System._draws``:
 monocular init, bootstrap, tracking and the keyframe whose local BA runs
 over a 3-keyframe window (the JAX side runs its BA in the Pallas
 configuration the port's BA follows on windows with invalid slots, through
-the kernel's plain reference: ``jax_pallas_ba``). Once per frame, and with
-the init success flags read in batches of 4 (``init_check_every=4``).
+the kernel's plain reference: ``jax_pallas_ba``). Once per frame, with
+the init success flags read in batches of 4 (``init_check_every=4``), and
+through ``track_image_with_stereo`` on stereo pairs of the same scene (the
+three tests share the JAX System's traces in this file).
 
 Tolerances: the init frame and every frame's status must be equal; tracked
 frames use the slice tolerances of tests/test_torch_slice.py (statuses equal
 on >= 98% of slots, pose <= 1e-3, median position / keypoint <= 1e-3) and
-depth RMSE within 1e-3.
+depth RMSE within 1e-3; the stereo RMSE within STEREO_RMSE_TOL.
 """
 
 import jax
@@ -22,10 +24,15 @@ from nrslam_tpu.datasets import synthetic as jsyn
 from nrslam_tpu.slam import system as jsys
 from nrslam_tpu_torch.slam import system as tsys
 
-from torch_parity import (entry_setting, jax_ransac_draws,  # noqa: F401
-                          np_of, pallas_ba_reference, quat_err, to_port)
+from torch_parity import (STEREO_BASELINE, entry_setting, jax_ransac_draws,
+                          np_of, quat_err, stereo_pair, to_port)
+from torch_parity import pallas_ba_reference  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
+
+# The stereo RMSE, port against JAX: about 10x the largest difference
+# measured over the stereo test's tracked frames (1.47e-5).
+STEREO_RMSE_TOL = 2e-4
 
 
 def _systems(monkeypatch, **kwargs):
@@ -97,3 +104,29 @@ def test_system_batched_init_check_matches_jax(pallas_ba_reference,
     init_frame = _step_both(scene, sj, st, 11)
     assert init_frame in (4, 8), init_frame
     assert not st._init_ring and st.init_state is None
+
+
+def test_track_image_with_stereo_matches_jax(pallas_ba_reference,
+                                             monkeypatch):
+    """Both Systems from frame 0 on the scene's stereo pairs through the
+    init, bootstrap and the first keyframe: equal statuses and keyframe
+    flags every frame, a stereo RMSE on the same frames, each within
+    STEREO_RMSE_TOL of JAX's (NCC ground truth on the TRACKED_WITH_3D slots,
+    1.5 IQR pre-filter, 0.9 inliers)."""
+    scene, sj, st = _systems(monkeypatch)
+    bf = scene.fx * STEREO_BASELINE
+    diffs = []
+    for i in range(13):
+        left, right = stereo_pair(scene, i)
+        oj = sj.track_image_with_stereo(left, right, bf=bf)
+        ot = st.track_image_with_stereo(to_port(left), to_port(right), bf=bf)
+        assert sj.status == st.status, i
+        assert oj.get("keyframe") == ot.get("keyframe"), i
+        assert ("stereo_rmse" in oj) == ("stereo_rmse" in ot), i
+        if "stereo_rmse" in oj:
+            assert np.isfinite(ot["stereo_rmse"]), i
+            diffs.append(abs(oj["stereo_rmse"] - ot["stereo_rmse"]))
+    assert st.status == tsys.TRACKING and len(diffs) >= 6, diffs
+    assert int(np_of(st.state.kf_valid).sum()) >= 2
+    print("stereo RMSE differences", diffs)
+    assert max(diffs) <= STEREO_RMSE_TOL, diffs

@@ -104,6 +104,24 @@ def entry_setting():
     return scene, synthetic.camera(scene), config, init_config
 
 
+STEREO_BASELINE = 0.12
+
+
+def stereo_pair(scene, frame: int):
+    """(left, right) gray renders of ``frame`` from a rig with an
+    x-baseline of ``STEREO_BASELINE``, as datasets/hamlyn_export.py makes
+    them (JAX arrays)."""
+    from nrslam_tpu.datasets import synthetic
+    from nrslam_tpu.geometry import se3
+
+    T_l = synthetic.camera_pose(frame, scene)
+    T_rl = se3.SE3(jnp.array([1.0, 0.0, 0.0, 0.0]),
+                   jnp.array([-STEREO_BASELINE, 0.0, 0.0]))
+    left = synthetic.render_frame_at(T_l, frame, scene)[0]
+    right = synthetic.render_frame_at(se3.compose(T_rl, T_l), frame, scene)[0]
+    return left, right
+
+
 def jax_bench_problem(max_points, height, width, max_new_kp, seed=0,
                       n_used=None):
     """bench.build_bench_problem at a chosen size, with the initial
