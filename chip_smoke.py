@@ -52,7 +52,7 @@ prints its seconds):
   6. the slice timed at 320x240/P=384/128 new keypoints, then at scale:
      640x480/P=768/256 new keypoints. Each: 4 warm-up frames (two under
      torch.cuda.set_sync_debug_mode("error"), which raises on a host
-     synchronisation it detects), then 50 timed frames at the 1-in-5
+     synchronisation it detects), then 25 timed frames at the 1-in-5
      keyframe cadence; checks the map is alive, the pose-only and joint
      kernels launched once per frame and the BA kernel once per keyframe;
   7. the main path: System.track_image_with_depth from frame 0 on the
@@ -78,13 +78,35 @@ prints its seconds):
      median depth difference <= 1e-4); ms per init / keyframe /
      non-keyframe frame and of the stereo evaluation;
  10. [disk-simulation]: datasets/simulation_export writes a 320x240 KB8
-     scene (40 frames, 16-bit PNG depth), the CLI runs it on the card
+     scene (30 frames, 16-bit PNG depth), the CLI runs it on the card
      through Settings' KannalaBrandt8 branch and a masker of a
      BorderFilter and a PredefinedFilter read from a PNG (P=384, viz
      dumps): TRACKING, finite median depth RMSE, the predefined mask on
      the card, launches as the path dictates, the dumps read back; the
      native loader, where it builds, decodes the exported frames as png.py
-     and the port's RGB -> gray do (else the compiler's reason).
+     and the port's RGB -> gray do (else the compiler's reason);
+ 11. [collapse]: System.track_image_with_depth at 320x240/P=384 with
+     auto_reinitialize and lost_check_every=1: tracked until >= 9
+     keyframes have gone into the 8-slot ring (it wrapped), then 4 black
+     frames, within which LOST must latch, then the scene again: the
+     re-initialisation must succeed and the run end TRACKING with >= 10
+     tracked 3D points and finite positions; prints each status change;
+ 12. [parallel]: 4 ranks spawned on this card (parallel.dryrun.World,
+     gloo over a FileStore in the scratch directory) hold, each against
+     its single-process counterpart on the card: the pose normal equations
+     sharded over P=768 points (<= 1e-5 max|H|); the keyframe-sharded BA
+     at the ring's size (K=8, P=768, E from the K=11 kNN graph,
+     n_iters=5, cg_iters=32) against the plain BA (poses <= 2e-4,
+     landmarks <= 2e-3, RMSE < 0.2x its start), and a window with 5 of 8
+     valid; the point-sharded frame_step at 640x480/P=768/256 for 6 frames
+     with a keyframe at frame 5 (n_tracked_3d equal, Tcw.t <= 1e-4,
+     positions <= 1e-3, statuses equal on >= 98% of slots, the pose-only
+     and joint kernels once per frame and the BA kernel once per keyframe
+     on every rank; the frame raises unless every rank's state checksum
+     equals the others' after each frame); then the
+     keyframe-sharded BA in this process on NCCL with world size 1 under
+     the same gates. Prints ms/frame of the sharded and the single-process
+     frame (four processes share the card: a measurement).
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the last line is {"ok": true, "device":
@@ -744,7 +766,7 @@ def system_parity(dev):
 
 
 def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
-    """4 warm-up frames (the last two under sync_debug_mode="error"), then 50
+    """4 warm-up frames (the last two under sync_debug_mode="error"), then 25
     timed frames at the 1-in-5 keyframe cadence. Returns the launch counts
     of the timed run."""
     from nrslam_tpu_torch import bench_problem
@@ -769,7 +791,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
         torch.cuda.set_sync_debug_mode(0)
 
     reset_launches()
-    n = 50
+    n = 25
     t0 = time.perf_counter()
     for i in range(n):
         s, res = system.frame_step(s, frames[i % len(frames)], mask, cam,
@@ -1210,7 +1232,7 @@ def disk_simulation(dev, card: str):
     from nrslam_tpu_torch.ops import image as image_ops
     from nrslam_tpu_torch.slam import system
 
-    n = 40
+    n = 30
     with scratch_dir() as tmp:
         scene = synthetic.SceneConfig(height=240, width=320, deform_amp=0.02,
                                       camera_kind="kb8")
@@ -1285,6 +1307,219 @@ def disk_simulation(dev, card: str):
                                      "decode differs from png.py's")
 
 
+def collapse_phase(dev, card: str):
+    """[collapse]: the System at 320x240/P=384 with auto_reinitialize and
+    the LOST flag read every frame, on the card: tracked until the keyframe
+    ring has wrapped (>= 9 keyframes inserted into its 8 slots), then 4
+    black frames, within which LOST must latch, then the scene again until
+    the re-initialised map has tracked 3 frames."""
+    from nrslam_tpu_torch.datasets import synthetic
+    from nrslam_tpu_torch.slam import system
+    from nrslam_tpu_torch.slam.state import Config
+
+    scene = synthetic.SceneConfig(height=240, width=320, deform_amp=0.02)
+    cam = synthetic.camera(scene, dev)
+    config = Config(max_points=384, max_new_keypoints=128,
+                    rad_per_pixel=1.0 / scene.fx)
+    sysm = system.System(cam, config, auto_reinitialize=True,
+                         lost_check_every=1)
+    changes, status, black, inserted, lost_at, reinit_at = [], None, None, \
+        0, None, None
+    out = {}
+    for i in range(200):
+        gray, depth, _ = synthetic.render_frame(i, scene, dev)
+        dark = black is not None and black <= i < black + 4
+        out = sysm.track_image_with_depth(gray * 0.0 if dark else gray,
+                                          depth)
+        if sysm.status != status:
+            changes.append((i, sysm.status))
+            status = sysm.status
+            if black is not None and status == system.NOT_INITIALIZED:
+                lost_at = i if lost_at is None else lost_at
+            if lost_at is not None and status == system.TRACKING:
+                reinit_at = i
+        if black is None and sysm.state is not None:
+            inserted = int(sysm.state.kf_next)
+            if inserted >= 9:
+                black = i + 1
+        if reinit_at is not None and i >= reinit_at + 3:
+            break
+    st = sysm.state
+    n3d = int(out.get("n_tracked_3d", 0))
+    finite = st is not None and bool(torch.isfinite(st.positions).all())
+    print(f"[collapse] 320x240 P=384 auto_reinitialize on {card}: status "
+          f"changes (frame, status) {changes}; {inserted} keyframes inserted "
+          f"into the 8-slot ring before the blackout at frames "
+          f"{black}-{None if black is None else black + 3}; LOST latched at "
+          f"{lost_at}, re-initialised at {reinit_at}; last frame {i}: "
+          f"{sysm.status}, n_tracked_3d={n3d}, finite={finite}")
+    if black is None or lost_at is None or not black <= lost_at < black + 4:
+        raise AssertionError("collapse: LOST did not latch in the blackout")
+    if reinit_at is None or sysm.status != system.TRACKING or n3d < 10 \
+            or not finite:
+        raise AssertionError("collapse: no re-initialised map tracking")
+
+
+def _np(tree):
+    from nrslam_tpu_torch import convert
+    return convert.to_numpy(tree)
+
+
+def check_sharded_ba(label, run, cam, poses0, L0, prob, plain):
+    """The keyframe-sharded BA's result (``run(args) -> per-rank (poses, L,
+    ms)``) against the plain single-process BA on the card: poses <= 2e-4,
+    landmark copies <= 2e-3, reprojection RMSE over the observed copies
+    < 0.2x its start."""
+    from nrslam_tpu_torch.geometry import cameras, se3
+
+    outs = run(_np(cam), _np(poses0), _np(L0), _np(prob), 5, 32)
+    poses, L, ms = outs[0]
+    t_ref, L_ref = plain[0].t.cpu().numpy(), plain[1].cpu().numpy()
+    d_pose = max(float(abs(poses.t - t_ref).max()),
+                 quat_err(torch.as_tensor(poses.q), plain[0].q.cpu()))
+    d_land = float(abs(L - L_ref).max())
+    obs_ok = (prob.obs_valid & prob.kf_valid[:, None]).cpu()
+
+    def rmse(q, t, LL):
+        dev = cam.params.device
+        pred = cameras.project(cam, se3.apply(se3.SE3(
+            torch.as_tensor(q, device=dev)[:, None],
+            torch.as_tensor(t, device=dev)[:, None]),
+            torch.as_tensor(LL, device=dev))).cpu()
+        r2 = torch.sum((pred - prob.obs.cpu()) ** 2, -1)[obs_ok]
+        return float(torch.sqrt(torch.mean(r2)))
+
+    r0 = rmse(poses0.q.cpu().numpy(), poses0.t.cpu().numpy(),
+              L0.cpu().numpy())
+    r1 = rmse(poses.q, poses.t, L)
+    K, P = L0.shape[:2]
+    print(f"[parallel] {label}: K={K} P={P} E={int(prob.pairs.valid.sum())} "
+          f"over {len(outs)} ranks: |dpose|={d_pose:.2e} (gate 2e-4) "
+          f"|dL|={d_land:.2e} (gate 2e-3) against the plain BA; RMSE "
+          f"{r0:.4f} -> {r1:.4f} px; {ms:.2f} ms")
+    if not (d_pose <= 2e-4 and d_land <= 2e-3 and r1 < 0.2 * r0):
+        raise AssertionError(f"parallel: {label} outside the gates")
+
+
+def parallel_phase(dev, card: str):
+    """[parallel]: 4 ranks spawned on this one card (gloo over a FileStore,
+    ``parallel.dryrun.World``) run the pose normal equations sharded over
+    points, the keyframe-sharded BA and the point-sharded frame; then the
+    keyframe-sharded BA once more in this process on NCCL with world size
+    1. Each is held to its single-process counterpart on the card."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nrslam_tpu_torch import bench_problem
+    from nrslam_tpu_torch.parallel import dryrun, sharding
+    from nrslam_tpu_torch.slam import system
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import pose_only
+
+    n = 4
+    with scratch_dir() as tmp:
+        t0 = time.perf_counter()
+        world = dryrun.World(n, str(dev), store_dir=tmp)
+        try:
+            # The pose normal equations, P=768, against one einsum.
+            cam, T0, X, obs, valid, _ = bench_problem.solver_problem(
+                device=dev, with_pairs=False)
+            w = valid.to(torch.float32)
+            outs = world.run("pose_system", _np(cam), _np(T0.q), _np(T0.t),
+                             _np(X), _np(obs), _np(w))
+            print(f"[parallel] {n} gloo ranks on {card} up and answering "
+                  f"in {time.perf_counter() - t0:.2f} s")
+            H_ref, g_ref, _, _ = pose_only._pose_system(cam, T0, X, obs, w)
+            H_ref, g_ref = H_ref.cpu().numpy(), g_ref.cpu().numpy()
+            H, g, _ = outs[0]
+            scale = float(abs(H_ref).max())
+            dH, dg = float(abs(H - H_ref).max()), float(abs(g - g_ref).max())
+            print(f"[parallel] pose system P={X.shape[0]} over {n} ranks: "
+                  f"max|dH| {dH:.3e} (gate 1e-5 x {scale:.3e}), max|dg| "
+                  f"{dg:.3e}")
+            if not (dH <= 1e-5 * scale
+                    and dg <= 1e-5 * max(1.0, float(abs(g_ref).max()))):
+                raise AssertionError("parallel: pose system outside gates")
+
+            # The keyframe-sharded BA at the ring's size.
+            for n_valid in (8, 5):
+                cam_b, poses0, L0, prob = bench_problem.ba_problem(
+                    n_valid=n_valid, device=dev, K=8, P=768)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob,
+                                                     5, 32)
+                torch.cuda.synchronize()
+                print(f"[parallel] plain single-process BA {n_valid}/8 "
+                      f"valid: {1e3 * (time.perf_counter() - t1):.2f} ms")
+                label = f"kf-sharded BA {n_valid}/8 valid"
+                check_sharded_ba(
+                    label, lambda *a: world.run("kf_sharded_ba", *a), cam_b,
+                    poses0, L0, prob, plain)
+
+            # The point-sharded frame against the single-process frame.
+            state, frames, mask, cam_f, config = \
+                bench_problem.build_bench_problem(768, 480, 640, 256,
+                                                  device=dev)
+            kfs = [False, False, False, False, True, False]
+            outs = world.run("sharded_frames", _np(state),
+                             [_np(f) for f in frames], _np(mask),
+                             _np(cam_f), config, kfs)
+        finally:
+            world.close()
+        s, n3d, ms = state, [], []
+        for f, kf in zip(frames, kfs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s, res = system.frame_step(s, f, mask, cam_f, config, kf)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            n3d.append(int(res.n_tracked_3d))
+        got = outs[0]["state"]
+        ref = _np(s)
+        dt = float(abs(got.Tcw.t - ref.Tcw.t).max())
+        dpos = float(abs(got.positions - ref.positions).max())
+        agree = float(np.mean(got.status == ref.status))
+        launches = [o["launches"] for o in outs]
+        want = {"pose_only": len(kfs), "pose_deformation": len(kfs),
+                "bundle_adjustment": sum(kfs)}
+        print(f"[parallel] sharded frame 640x480 P=768/256 on {card}, "
+              f"{len(kfs)} frames (keyframe at frame 5) over {n} ranks: "
+              f"n_tracked_3d {outs[0]['n_tracked_3d']} (single process "
+              f"{n3d}), |dTcw.t| {dt:.2e} (gate 1e-4), max|dpos| {dpos:.2e} "
+              f"(gate 1e-3), statuses equal on {agree:.4f} (gate 0.98), "
+              f"every rank's state checksum equal to the others' on every "
+              f"frame; launches per rank {launches[0]} "
+              f"(all ranks {'equal' if launches.count(launches[0]) == n else launches}); "
+              f"ms/frame sharded {statistics.median(outs[0]['ms']):.2f} "
+              f"(frames {[round(x, 2) for x in outs[0]['ms']]}), single "
+              f"process {statistics.median(ms):.2f} "
+              f"(frames {[round(x, 2) for x in ms]}); {n} processes share "
+              f"the card: a measurement, no speed-up expected")
+        if not (outs[0]["n_tracked_3d"] == n3d and dt <= 1e-4
+                and dpos <= 1e-3 and agree >= 0.98
+                and all(x == want for x in launches)):
+            raise AssertionError(f"parallel: sharded frame outside the "
+                                 f"gates (launches {launches}, want {want})")
+
+        # NCCL, world size 1, in this process.
+        cam_b, poses0, L0, prob = bench_problem.ba_problem(
+            n_valid=8, device=dev, K=8, P=768)
+        plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob, 5, 32)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = sharding.make_mesh(dev)
+            assert mesh.group is not None and mesh.world_size == 1
+            check_sharded_ba(
+                f"kf-sharded BA on {dist.get_backend()} world size 1",
+                lambda *a: [dryrun.TASKS["kf_sharded_ba"](mesh, *a)], cam_b,
+                poses0, L0, prob, plain)
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     args = sys.argv[1:]
     witness = args == ["--witness"]
@@ -1343,6 +1578,8 @@ def main():
           rec)
     phase("disk-hamlyn", disk_hamlyn, dev, card)
     phase("disk-simulation", disk_simulation, dev, card)
+    phase("collapse", collapse_phase, dev, card)
+    phase("parallel", parallel_phase, dev, card)
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
 
     sources = {

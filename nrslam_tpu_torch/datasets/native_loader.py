@@ -40,21 +40,28 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libnrslam_dataloader_{digest}.so"
 
 
+def _compile(so: Path) -> None:
+    """Compile the library into ``so`` (replaced in one step, so a process
+    loading it meanwhile sees the old file or the new one). Raises on
+    failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, so.name)
+        proc = subprocess.run(
+            [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", out,
+             str(SOURCE), *LIBS], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"native loader build failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(out, so)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the loader library. Raises on failure."""
     so = _library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = os.path.join(tmp, so.name)
-            proc = subprocess.run(
-                [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", out,
-                 str(SOURCE), *LIBS], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"native loader build failed:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(out, so)
+        _compile(so)
     lib = ctypes.CDLL(str(so))
     lib.dl_open.restype = ctypes.c_void_p
     lib.dl_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
@@ -68,6 +75,18 @@ def library() -> ctypes.CDLL:
     lib.dl_decode.restype = ctypes.c_int
     lib.dl_decode.argtypes = [ctypes.c_char_p, _F, ctypes.c_int, _IP, _IP]
     return lib
+
+
+def build(force: bool = False) -> bool:
+    """Build the library (again, with ``force``) and load it. Returns
+    whether that succeeded."""
+    if force:
+        try:
+            _compile(_library_path())
+        except RuntimeError:
+            return False
+        library.cache_clear()
+    return available()
 
 
 def available() -> bool:

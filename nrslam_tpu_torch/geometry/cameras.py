@@ -20,6 +20,22 @@ class Camera(NamedTuple):
     params: torch.Tensor
     kind: str = PINHOLE
 
+    @property
+    def fx(self):
+        return self.params[..., 0]
+
+    @property
+    def fy(self):
+        return self.params[..., 1]
+
+    @property
+    def cx(self):
+        return self.params[..., 2]
+
+    @property
+    def cy(self):
+        return self.params[..., 3]
+
 
 def pinhole(fx, fy, cx, cy, device=None) -> Camera:
     """On the card unless ``device`` says otherwise (``utils.device``)."""

@@ -99,6 +99,21 @@ def matrix_to_quat(m):
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_slerp(q0, q1, u):
+    """Spherical interpolation between unit quaternions (shortest arc),
+    falling back to lerp where they are nearly parallel."""
+    u = torch.as_tensor(u, dtype=q0.dtype, device=q0.device)[..., None]
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    theta = torch.arccos(torch.clamp(torch.abs(d), -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-6
+    safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(near, 1.0 - u, torch.sin((1.0 - u) * theta) / safe)
+    w1 = torch.where(near, u, torch.sin(u * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
 def compose(a: SE3, b: SE3) -> SE3:
     """a * b (apply b first, then a)."""
     return SE3(quat_normalize(quat_multiply(a.q, b.q)),
@@ -113,6 +128,19 @@ def inverse(T: SE3) -> SE3:
 def apply(T: SE3, X):
     """Transform points X [..., 3]."""
     return quat_rotate(T.q, X) + T.t
+
+
+def to_matrix(T: SE3):
+    """Homogeneous [..., 4, 4] matrix of T."""
+    R = quat_to_matrix(T.q)
+    top = torch.cat([R, T.t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(T.t.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(M) -> SE3:
+    return SE3(matrix_to_quat(M[..., :3, :3]), M[..., :3, 3])
 
 
 def hat(omega):
@@ -183,6 +211,18 @@ def log(T: SE3):
 def retract(T: SE3, twist) -> SE3:
     """Left-multiplicative update exp(twist) * T (g2o expmap oplus)."""
     return compose(exp(twist), T)
+
+
+def slerp(T0: SE3, T1: SE3, u) -> SE3:
+    """Slerp of the rotation and lerp of the translation (the reference's
+    trajectory interpolation in the init refinement)."""
+    u = torch.as_tensor(u, dtype=T0.t.dtype, device=T0.t.device)
+    return SE3(quat_slerp(T0.q, T1.q, u), T0.t + (T1.t - T0.t) * u[..., None])
+
+
+def stack(transforms, dim: int = 0) -> SE3:
+    return SE3(torch.stack([T.q for T in transforms], dim=dim),
+               torch.stack([T.t for T in transforms], dim=dim))
 
 
 def index(T: SE3, idx) -> SE3:

@@ -1,0 +1,249 @@
+"""The SLAM state sharded over the landmark-slot axis across the ranks of a
+``torch.distributed`` process group (counterpart of
+nrslam_tpu/parallel/sharding.py).
+
+Each rank holds a contiguous block of ``P / n`` landmark slots of every
+array whose extent along some axis is ``max_points`` (the first such axis:
+``[P, P]`` graph matrices shard by rows, the keyframe and temporal rings
+``[K, P, ...]`` / ``[T, P, ...]`` along their point axis); everything else
+(poses, ring heads, scalars) is replicated. Eager PyTorch has no SPMD
+partitioner, so the collectives are explicit (``tracking_shard``,
+``ba_shard``).
+
+Every collective here is an ``all_reduce``: a gather is the SUM of a
+zero-filled buffer with one block per rank, a halo exchange is a gather
+read at the neighbour's block. PyTorch's gloo backend runs only
+``broadcast`` and ``all_reduce`` on CUDA tensors, so the one code path
+serves gloo on CPU tensors (the tests), gloo with several ranks sharing one
+card, and NCCL with one card per rank. Summing zeros into a value is exact,
+so a gather returns every block bit for bit. Without a process group (a
+single process) every collective is the identity.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from nrslam_tpu_torch.geometry import cameras, se3
+from nrslam_tpu_torch.solver import pose_only
+from nrslam_tpu_torch.utils.device import resolve
+from nrslam_tpu_torch.utils.tree import tree_map
+
+
+class Mesh(NamedTuple):
+    """This process's place in a 1-D mesh of ranks: its rank, the number of
+    ranks, the process group (None: a single process, no collectives), the
+    device its tensors live on and the mesh axis's name."""
+
+    rank: int
+    world_size: int
+    group: Optional[object]
+    device: torch.device
+    axis: str = "pt"
+
+
+def make_mesh(device=None, axis: str = "pt", group=None) -> Mesh:
+    """The mesh over ``group`` (the default group where one is initialised,
+    else a single process) with this rank's tensors on ``device`` (the
+    card unless told otherwise, ``utils.device``)."""
+    device = resolve(device)
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is None:
+        return Mesh(0, 1, None, device, axis)
+    return Mesh(dist.get_rank(group), dist.get_world_size(group), group,
+                device, axis)
+
+
+# ---------------------------------------------------------------------------
+# Collectives (all_reduce only)
+# ---------------------------------------------------------------------------
+
+def _wire(x):
+    """``x`` in a dtype every backend reduces (bool travels as uint8)."""
+    return x.to(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _all_reduce_packed(mesh: Mesh, tensors, op):
+    """One ``all_reduce`` per dtype over the flattened ``tensors``."""
+    tensors = list(tensors)
+    if mesh.group is None:
+        return tensors
+    out = [None] * len(tensors)
+    by_dtype = {}
+    for k, x in enumerate(tensors):
+        by_dtype.setdefault(_wire(x).dtype, []).append(k)
+    for ks in by_dtype.values():
+        flat = torch.cat([_wire(tensors[k]).reshape(-1) for k in ks])
+        dist.all_reduce(flat, op=op, group=mesh.group)
+        for k, part in zip(ks, torch.split(
+                flat, [tensors[k].numel() for k in ks])):
+            out[k] = part.reshape(tensors[k].shape).to(tensors[k].dtype)
+    return out
+
+
+def all_reduce_sum(mesh: Mesh, *tensors):
+    """Each tensor summed over the ranks (one collective per dtype)."""
+    return tuple(_all_reduce_packed(mesh, tensors, dist.ReduceOp.SUM))
+
+
+def all_reduce_max(mesh: Mesh, *tensors):
+    """Each tensor's elementwise maximum over the ranks."""
+    return tuple(_all_reduce_packed(mesh, tensors, dist.ReduceOp.MAX))
+
+
+def all_gather_rows(mesh: Mesh, tensors, dims=None):
+    """Every rank's block of each tensor, concatenated in rank order along
+    its ``dims`` entry (default 0): one SUM of a zero-filled buffer per
+    dtype. The blocks must have equal extents."""
+    tensors = list(tensors)
+    dims = [0] * len(tensors) if dims is None else list(dims)
+    if mesh.group is None:
+        return tensors
+    bufs = []
+    for x, d in zip(tensors, dims):
+        m = x.shape[d]
+        shape = list(x.shape)
+        shape[d] = m * mesh.world_size
+        buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        buf.narrow(d, mesh.rank * m, m).copy_(x)
+        bufs.append(buf)
+    return _all_reduce_packed(mesh, bufs, dist.ReduceOp.SUM)
+
+
+def same_on_ranks(mesh: Mesh, x) -> bool:
+    """Whether every rank holds the same ``x`` (an elementwise MAX of
+    (x, -x) gives each element's largest and smallest value)."""
+    v = x.to(torch.float64 if x.is_floating_point() else torch.int64)
+    hi, neg_lo = all_reduce_max(mesh, torch.stack([v, -v]))[0]
+    return bool(torch.equal(hi, -neg_lo))
+
+
+def digest(tree):
+    """[L] int64: a checksum of the bytes of each tensor leaf of ``tree``,
+    each byte weighted by its position (so a permutation changes it)."""
+    sums = []
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            b = x.reshape(-1).contiguous().view(torch.uint8).to(torch.int64)
+            w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+            sums.append(torch.sum(b * w))
+        return x
+
+    tree_map(add, tree)
+    return torch.stack(sums)
+
+
+def _blocks(mesh: Mesh, x):
+    """[n, ...]: every rank's ``x``."""
+    return all_gather_rows(mesh, [x[None]])[0]
+
+
+def recv_next(mesh: Mesh, x):
+    """Rank b gets rank b+1's ``x``; the last rank gets zeros (JAX
+    ``_perm_recv_next``)."""
+    if mesh.group is None or mesh.rank == mesh.world_size - 1:
+        _blocks(mesh, x)  # every rank takes part in the collective
+        return torch.zeros_like(x)
+    return _blocks(mesh, x)[mesh.rank + 1]
+
+
+def send_next(mesh: Mesh, x):
+    """Rank b's ``x`` lands on rank b+1; rank 0 gets zeros (JAX
+    ``_perm_send_next``)."""
+    if mesh.group is None or mesh.rank == 0:
+        _blocks(mesh, x)
+        return torch.zeros_like(x)
+    return _blocks(mesh, x)[mesh.rank - 1]
+
+
+# ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+def _spec_for(shape, max_points: int) -> Optional[int]:
+    """The axis sharded over the mesh: the first whose extent is
+    ``max_points`` (None: replicated)."""
+    for d, n in enumerate(shape):
+        if n == max_points:
+            return d
+    return None
+
+
+def local_block(mesh: Mesh, x, d: int):
+    """This rank's contiguous block of ``x`` along axis ``d``."""
+    m = x.shape[d] // mesh.world_size
+    return x.narrow(d, mesh.rank * m, m)
+
+
+def shard_state(state, mesh: Mesh, max_points: int):
+    """This rank's contiguous ``P / n`` slots of every point-axis array of
+    ``state`` (any tree), on the mesh's device; the rest replicated."""
+    if max_points % mesh.world_size:
+        raise ValueError(f"max_points={max_points} does not split over "
+                         f"{mesh.world_size} ranks")
+
+    def place(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.to(mesh.device)
+        d = _spec_for(x.shape, max_points)
+        return x if d is None else local_block(mesh, x, d).contiguous()
+
+    return tree_map(place, state)
+
+
+def point_axes(state, max_points: int):
+    """The tree of ``state``'s sharded axes (an int, or None where the leaf
+    is replicated), read off the full shapes. A shard's own shapes cannot
+    say it: a replicated ``[K]`` ring has the extent of a ``P / n`` block
+    when K = P / n."""
+    return tree_map(lambda x: _spec_for(x.shape, max_points)
+                    if isinstance(x, torch.Tensor) else None, state)
+
+
+def unshard_state(local_state, mesh: Mesh, axes):
+    """The whole state from every rank's shard (``shard_state``'s inverse,
+    ``axes`` from ``point_axes`` of the full state): the point-axis arrays
+    gathered, the rest as this rank holds them."""
+    leaves, dims = [], []
+
+    def collect(x, d):
+        if isinstance(x, torch.Tensor) and d is not None:
+            leaves.append(x)
+            dims.append(d)
+        return x
+
+    tree_map(collect, local_state, axes)
+    gathered = iter(all_gather_rows(mesh, leaves, dims))
+    return tree_map(lambda x, d: next(gathered)
+                    if isinstance(x, torch.Tensor) and d is not None else x,
+                    local_state, axes)
+
+
+def replicate(tree, mesh: Mesh):
+    """Every leaf on the mesh's device (each rank holds all of it)."""
+    return tree_map(lambda x: torch.as_tensor(x).to(mesh.device)
+                    if x is not None and not isinstance(x, str) else x, tree)
+
+
+# ---------------------------------------------------------------------------
+# The pose normal equations over point shards
+# ---------------------------------------------------------------------------
+
+def pose_system_sharded(mesh: Mesh, cam: cameras.Camera):
+    """``fn(q, t, X, obs, w) -> (H [6, 6], g [6], chi2)``: each rank's
+    partial normal equations of the unary reprojection edges over its point
+    shard (Huber 5.99 IRLS, ``pose_only._pose_system``), then one
+    ``all_reduce`` gives every rank the global system (JAX
+    ``pose_system_shard_map``)."""
+    def fn(q, t, X, obs, w):
+        H, g, total, _ = pose_only._pose_system(cam, se3.SE3(q, t), X, obs,
+                                                w)
+        return all_reduce_sum(mesh, H, g, total)
+
+    return fn

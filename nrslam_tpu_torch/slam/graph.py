@@ -127,6 +127,30 @@ def top_k_neighbors(graph: GraphState, eligible, k: int):
     return top_idx, torch.clamp(top_w, min=0.0), d0, valid
 
 
+def neighborhood_rings(graph: GraphState, seed_mask, k: int):
+    """0th/1st/2nd-order neighbourhood rings of a seed landmark set
+    (GetOptimizationNeighbours, regularization_graph.cc:159-232): ring1 =
+    the top-k usable neighbours of the seeds outside the seeds, ring2 = the
+    top-k usable neighbours of ring1 outside rings 0 and 1. Returns
+    (ring0, ring1, ring2), bool [P] each."""
+    usable = graph.exists & ~graph.bad & (graph.weight >= MIN_WEIGHT)
+
+    def expand(frontier, excluded):
+        scores = torch.where(usable & frontier[:, None], graph.weight,
+                             torch.full_like(graph.weight, -1.0))
+        top_w, top_idx = torch.sort(scores, dim=1, descending=True,
+                                    stable=True)
+        hit = torch.zeros(frontier.shape[0], dtype=torch.int32,
+                          device=frontier.device)
+        hit.index_add_(0, top_idx[:, :k].reshape(-1),
+                       (top_w[:, :k] > 0).reshape(-1).to(torch.int32))
+        return (hit > 0) & ~excluded
+
+    ring1 = expand(seed_mask, seed_mask)
+    ring2 = expand(ring1, seed_mask | ring1)
+    return seed_mask, ring1, ring2
+
+
 def remove_landmarks(graph: GraphState, remove_mask) -> GraphState:
     """Drop all edges incident to removed slots (slot recycling)."""
     keep = ~remove_mask

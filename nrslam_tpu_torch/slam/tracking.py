@@ -119,6 +119,14 @@ def create_keyframe(state: SlamState, pyramid, mask,
                     config: Config) -> SlamState:
     """Extract new features into free (or recycled) slots, snapshot the
     keyframe and refresh the KLT reference (tracking.cc:350-392)."""
+    state = add_keyframe_features(state, pyramid, mask, config)
+    return refresh_reference(state, pyramid, mask, config)
+
+
+def add_keyframe_features(state: SlamState, pyramid, mask,
+                          config: Config) -> SlamState:
+    """``create_keyframe`` up to the keyframe snapshot: everything but the
+    KLT reference, which ``refresh_reference`` sets per slot."""
     img = pyramid[0][0]
     usable = klt.is_usable(state.status) & state.slot_used
 
@@ -164,7 +172,12 @@ def create_keyframe(state: SlamState, pyramid, mask,
         next_track_id=state.next_track_id
         + torch.sum(can_place.to(torch.int32), dtype=torch.int32))
 
-    state = state_mod.insert_keyframe(state)
+    return state_mod.insert_keyframe(state)
+
+
+def refresh_reference(state: SlamState, pyramid, mask,
+                      config: Config) -> SlamState:
+    """The KLT reference of every usable slot on the keyframe's image."""
     usable = klt.is_usable(state.status) & state.slot_used
     refs = klt.set_reference(pyramid, state.keypoints, usable,
                              config.klt_config, mask=mask)

@@ -119,6 +119,22 @@ def solve_spd6(H, g):
     return torch.cat([y1, y2], dim=-1)
 
 
+def inv_spd6(H):
+    """Closed-form SPD 6x6 inverse via the 3x3 block Schur complement."""
+    A = H[..., :3, :3]
+    B = H[..., :3, 3:]
+    C = H[..., 3:, 3:]
+    Ainv = inv3x3(A)
+    AinvB = Ainv @ B
+    S = C - B.transpose(-1, -2) @ AinvB
+    Sinv = inv3x3(S)
+    TR = -AinvB @ Sinv
+    TL = Ainv + AinvB @ Sinv @ AinvB.transpose(-1, -2)
+    top = torch.cat([TL, TR], dim=-1)
+    bottom = torch.cat([TR.transpose(-1, -2), Sinv], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def solve_dense(H, g, lam):
     """Solve (H + lam I) dx = -g for the 6x6 pose system."""
     n = H.shape[-1]

@@ -7,7 +7,9 @@ state's tensors, moved to the CPU, by dotted field name (``"Tcw.q"``,
 on that example's device. It also reads the JAX package's npz fallback
 layout (``step_<k>.npz`` holding ``leaf_0..`` in the pytree's leaf order,
 which for a NamedTuple state is field order, depth first), so a state saved
-by the JAX package resumes in the port.
+by the JAX package resumes in the port. The JAX package's default layout,
+an orbax directory ``step_<k>/``, is read through orbax, imported only
+then (the card's machine has none).
 """
 
 from __future__ import annotations
@@ -42,6 +44,44 @@ def _rebuild(tree, leaves):
     return next(leaves)
 
 
+def _nested_map(fn, tree):
+    """``fn`` over the leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _nested_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_nested_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _read_orbax(directory: Path, names):
+    """The arrays of the orbax checkpoint ``directory`` (nested dicts by
+    field name, lists by position) at each dotted name, as numpy."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as err:
+        raise RuntimeError(f"{directory} is an orbax checkpoint (the JAX "
+                           f"package's default layout): reading it needs "
+                           f"the orbax-checkpoint package") from err
+    with ocp.PyTreeCheckpointer() as ckptr:
+        meta = ckptr.metadata(directory).item_metadata
+        args = _nested_map(lambda _: ocp.RestoreArgs(restore_type=np.ndarray),
+                           getattr(meta, "tree", meta))
+        tree = ckptr.restore(directory, restore_args=args)
+    leaves = []
+    _nested_map(leaves.append, tree)
+    n_saved = len(leaves)
+    if n_saved != len(names):
+        raise ValueError(f"{directory}: {n_saved} arrays, the example state "
+                         f"has {len(names)}")
+    values = []
+    for name in names:
+        node = tree
+        for key in name.split("."):
+            node = node[int(key)] if isinstance(node, list) else node[key]
+        values.append(torch.from_numpy(np.array(node)))
+    return values
+
+
 def save(path: str, state, step: int = 0) -> None:
     """Write ``state`` (any NamedTuple / list / tuple tree of tensors) to
     ``<path>/step_<step>.pt``."""
@@ -54,9 +94,9 @@ def save(path: str, state, step: int = 0) -> None:
 
 def restore(path: str, example_state, step: int = 0):
     """The state saved at ``step``, in ``example_state``'s structure, on its
-    device: the port's ``step_<k>.pt``, else the JAX package's
-    ``step_<k>.npz``. Raises where a leaf's name, shape or dtype does not
-    match the example."""
+    device: the port's ``step_<k>.pt``, else the JAX package's orbax
+    directory ``step_<k>/`` or its ``step_<k>.npz``. Raises where a leaf's
+    name, shape or dtype does not match the example."""
     path = Path(path)
     example = list(_named_leaves(example_state))
     pt = path / f"step_{step}.pt"
@@ -66,6 +106,9 @@ def restore(path: str, example_state, step: int = 0):
         if len(saved) != len(example):
             raise ValueError(f"{pt}: {len(saved)} tensors, the example "
                              f"state has {len(example)}")
+    elif (path / f"step_{step}").is_dir():
+        values = _read_orbax((path / f"step_{step}").absolute(),
+                             [name for name, _ in example])
     else:
         data = np.load(path / f"step_{step}.npz")
         if len(data.files) != len(example):

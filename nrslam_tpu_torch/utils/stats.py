@@ -4,6 +4,11 @@ from __future__ import annotations
 
 import torch
 
+# Chi-squared 95% critical values, 1..10 degrees of freedom
+# (statistics_toolbox.cc:52-90), on the CPU: ``.to(device)`` where needed.
+CHI2_95 = torch.tensor([3.841, 5.991, 7.815, 9.488, 11.070, 12.592, 14.067,
+                        15.507, 16.919, 18.307], dtype=torch.float32)
+
 
 def masked_mean(x, mask, dim=None):
     m = mask.to(x.dtype)

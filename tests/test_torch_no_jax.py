@@ -2,7 +2,8 @@
 the functions that need them (the card's machine has neither): every
 module of nrslam_tpu_torch (and chip_smoke.py) is imported in a fresh
 interpreter, which must end with no ``jax``, ``nrslam_tpu``, ``cv2`` or
-``PIL`` in ``sys.modules``."""
+``PIL`` in ``sys.modules``. Importing ``nrslam_tpu_torch.parallel``'s
+modules starts no process group and no process."""
 
 import os
 import subprocess
@@ -23,6 +24,13 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert len(names) >= 20, names
+parallel = {"nrslam_tpu_torch.parallel." + m for m in (
+    "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun")}
+assert parallel <= set(names), sorted(parallel - set(names))
+import multiprocessing
+import torch.distributed as dist
+assert not dist.is_initialized(), "an import started a process group"
+assert not multiprocessing.active_children(), "an import started a process"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "nrslam_tpu", "cv2", "PIL"))
 print(len(names), bad)

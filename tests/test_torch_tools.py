@@ -149,6 +149,33 @@ def test_checkpoint_resumes_a_jax_npz_checkpoint(jax_state, tmp_path,
     _assert_states_equal(back, to_port(jax_state))
 
 
+def test_checkpoint_resumes_a_jax_orbax_checkpoint(jax_state, tmp_path):
+    """A state the JAX package saved with its default ``save`` (through
+    orbax, which this machine has) restores in the port equal to
+    convert.from_numpy of the same state, field by field."""
+    pytest.importorskip("orbax.checkpoint")
+    from nrslam_tpu.utils import checkpoint as jcheckpoint
+
+    jcheckpoint.save(str(tmp_path / "jck"), jax_state, step=2)
+    assert (tmp_path / "jck" / "step_2").is_dir()
+    assert not (tmp_path / "jck" / "step_2.npz").exists()
+    example = tstate.empty_state(to_port(CONFIG), (40, 56), "cpu")
+    back = checkpoint.restore(str(tmp_path / "jck"), example, step=2)
+    _assert_states_equal(back, to_port(jax_state))
+    other = tstate.empty_state(tstate.Config(max_points=16), (40, 56), "cpu")
+    with pytest.raises(ValueError):
+        checkpoint.restore(str(tmp_path / "jck"), other, step=2)
+
+
+def test_checkpoint_orbax_directory_without_orbax(tmp_path, monkeypatch):
+    """Without orbax, an orbax directory is refused by name."""
+    (tmp_path / "ck" / "step_0").mkdir(parents=True)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    example = tstate.empty_state(to_port(CONFIG), (40, 56), "cpu")
+    with pytest.raises(RuntimeError, match="step_0.*orbax"):
+        checkpoint.restore(str(tmp_path / "ck"), example)
+
+
 def test_viz_dumps_match_jax(jax_state, tmp_path):
     """Every overlay equal pixel for pixel to the JAX dump of the same
     state; save_png writes what Pillow reads back."""
