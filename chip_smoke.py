@@ -98,15 +98,24 @@ prints its seconds):
      at the ring's size (K=8, P=768, E from the K=11 kNN graph,
      n_iters=5, cg_iters=32) against the plain BA (poses <= 2e-4,
      landmarks <= 2e-3, RMSE < 0.2x its start), and a window with 5 of 8
-     valid; the point-sharded frame_step at 640x480/P=768/256 for 6 frames
-     with a keyframe at frame 5 (n_tracked_3d equal, Tcw.t <= 1e-4,
-     positions <= 1e-3, statuses equal on >= 98% of slots, the pose-only
-     and joint kernels once per frame and the BA kernel once per keyframe
-     on every rank; the frame raises unless every rank's state checksum
-     equals the others' after each frame); then the
-     keyframe-sharded BA in this process on NCCL with world size 1 under
-     the same gates. Prints ms/frame of the sharded and the single-process
-     frame (four processes share the card: a measurement).
+     valid; the row-sharded frame_step (each rank builds the seeded
+     problem with only its [P/4, P] graph rows) at 640x480/256 new
+     keypoints, P=768 for 6 frames with a keyframe at frame 5 and P=4096
+     for 3 frames with a keyframe at frame 3 (n_tracked_3d equal, Tcw.t
+     <= 1e-4, positions <= 1e-3, statuses equal on >= 98% of slots, at
+     P=768 the graph gathered once at the end: edges and bad flags equal,
+     distances and weights <= 1e-3; the pose-only and joint kernels once
+     per frame and the BA kernel once per keyframe on every rank; every
+     collective payload under P*P/4 elements; the frame raises unless
+     every rank's state checksum equals the others' after each frame);
+     then the keyframe-sharded BA in this process on NCCL with world size
+     1 under the same gates. Prints ms/frame of the sharded and the
+     single-process frame (four processes share the card: a
+     measurement), each rank's collective payload bytes per frame beside
+     the whole-state gather's (worked out from its gathers) and the
+     prediction,
+     and at P=4096 each rank's peak allocated memory over the frames
+     beside the single process's and the prediction.
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the last line is {"ok": true, "device":
@@ -1365,54 +1374,30 @@ def _np(tree):
     return convert.to_numpy(tree)
 
 
-def check_sharded_ba(label, run, cam, poses0, L0, prob, plain):
-    """The keyframe-sharded BA's result (``run(args) -> per-rank (poses, L,
-    ms)``) against the plain single-process BA on the card: poses <= 2e-4,
-    landmark copies <= 2e-3, reprojection RMSE over the observed copies
-    < 0.2x its start."""
-    from nrslam_tpu_torch.geometry import cameras, se3
-
-    outs = run(_np(cam), _np(poses0), _np(L0), _np(prob), 5, 32)
-    poses, L, ms = outs[0]
-    t_ref, L_ref = plain[0].t.cpu().numpy(), plain[1].cpu().numpy()
-    d_pose = max(float(abs(poses.t - t_ref).max()),
-                 quat_err(torch.as_tensor(poses.q), plain[0].q.cpu()))
-    d_land = float(abs(L - L_ref).max())
-    obs_ok = (prob.obs_valid & prob.kf_valid[:, None]).cpu()
-
-    def rmse(q, t, LL):
-        dev = cam.params.device
-        pred = cameras.project(cam, se3.apply(se3.SE3(
-            torch.as_tensor(q, device=dev)[:, None],
-            torch.as_tensor(t, device=dev)[:, None]),
-            torch.as_tensor(LL, device=dev))).cpu()
-        r2 = torch.sum((pred - prob.obs.cpu()) ** 2, -1)[obs_ok]
-        return float(torch.sqrt(torch.mean(r2)))
-
-    r0 = rmse(poses0.q.cpu().numpy(), poses0.t.cpu().numpy(),
-              L0.cpu().numpy())
-    r1 = rmse(poses.q, poses.t, L)
-    K, P = L0.shape[:2]
-    print(f"[parallel] {label}: K={K} P={P} E={int(prob.pairs.valid.sum())} "
-          f"over {len(outs)} ranks: |dpose|={d_pose:.2e} (gate 2e-4) "
-          f"|dL|={d_land:.2e} (gate 2e-3) against the plain BA; RMSE "
-          f"{r0:.4f} -> {r1:.4f} px; {ms:.2f} ms")
-    if not (d_pose <= 2e-4 and d_land <= 2e-3 and r1 < 0.2 * r0):
-        raise AssertionError(f"parallel: {label} outside the gates")
+# The sharded frame's points: the main path's P, and P = 4096, where the
+# [P, P] graph (302 MB) and its temporaries dominate a process's memory.
+PARALLEL_POINTS = (768, 4096)
+# Predicted before the first run on the card (PERF.md §6), printed beside the
+# readings; not gates. Bytes: each rank's collective payload bytes per
+# frame (non-keyframe, keyframe), counted on the CPU from the same shapes;
+# peak: each rank's and the single process's max_memory_allocated over
+# the frames at P = 4096, MB.
+PREDICTED = {768: {"bytes": (732_544, 787_712)},
+             4096: {"bytes": (3_897_472, 4_198_912),
+                    "rank_peak_mb": (200, 400), "single_peak_mb": (800, 1300)}}
 
 
 def parallel_phase(dev, card: str):
     """[parallel]: 4 ranks spawned on this one card (gloo over a FileStore,
     ``parallel.dryrun.World``) run the pose normal equations sharded over
-    points, the keyframe-sharded BA and the point-sharded frame; then the
-    keyframe-sharded BA once more in this process on NCCL with world size
-    1. Each is held to its single-process counterpart on the card."""
-    import numpy as np
+    points, the keyframe-sharded BA and the row-sharded frame at P=768 and
+    P=4096; then the keyframe-sharded BA once more in this process on NCCL
+    with world size 1. Each is held to its single-process counterpart on
+    the card."""
     import torch.distributed as dist
 
     from nrslam_tpu_torch import bench_problem
     from nrslam_tpu_torch.parallel import dryrun, sharding
-    from nrslam_tpu_torch.slam import system
     from nrslam_tpu_torch.solver import bundle_adjustment as ba
     from nrslam_tpu_torch.solver import pose_only
 
@@ -1452,55 +1437,25 @@ def parallel_phase(dev, card: str):
                 torch.cuda.synchronize()
                 print(f"[parallel] plain single-process BA {n_valid}/8 "
                       f"valid: {1e3 * (time.perf_counter() - t1):.2f} ms")
-                label = f"kf-sharded BA {n_valid}/8 valid"
-                check_sharded_ba(
-                    label, lambda *a: world.run("kf_sharded_ba", *a), cam_b,
-                    poses0, L0, prob, plain)
+                outs = world.run("kf_sharded_ba", _np(cam_b), _np(poses0),
+                                 _np(L0), _np(prob), 5, 32)
+                dryrun.report_ba(
+                    "[parallel]", f"kf-sharded BA {n_valid}/8 valid",
+                    dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob,
+                                            plain), n, L0, prob)
 
-            # The point-sharded frame against the single-process frame.
-            state, frames, mask, cam_f, config = \
-                bench_problem.build_bench_problem(768, 480, 640, 256,
-                                                  device=dev)
-            kfs = [False, False, False, False, True, False]
-            outs = world.run("sharded_frames", _np(state),
-                             [_np(f) for f in frames], _np(mask),
-                             _np(cam_f), config, kfs)
+            # The row-sharded frame against the single-process frame: each
+            # rank builds the seeded problem with its own graph rows. The
+            # ranks share the card: a measurement, no speed-up expected.
+            for P, kfs in zip(PARALLEL_POINTS,
+                              ([False] * 4 + [True, False],
+                               [False, False, True])):
+                r = dryrun.frames_against_single(world, dev, P, kfs,
+                                                 gather_graph=P <= 768)
+                dryrun.report_frames("[parallel]", card, r, P, kfs,
+                                     PREDICTED.get(P))
         finally:
             world.close()
-        s, n3d, ms = state, [], []
-        for f, kf in zip(frames, kfs):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            s, res = system.frame_step(s, f, mask, cam_f, config, kf)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t1))
-            n3d.append(int(res.n_tracked_3d))
-        got = outs[0]["state"]
-        ref = _np(s)
-        dt = float(abs(got.Tcw.t - ref.Tcw.t).max())
-        dpos = float(abs(got.positions - ref.positions).max())
-        agree = float(np.mean(got.status == ref.status))
-        launches = [o["launches"] for o in outs]
-        want = {"pose_only": len(kfs), "pose_deformation": len(kfs),
-                "bundle_adjustment": sum(kfs)}
-        print(f"[parallel] sharded frame 640x480 P=768/256 on {card}, "
-              f"{len(kfs)} frames (keyframe at frame 5) over {n} ranks: "
-              f"n_tracked_3d {outs[0]['n_tracked_3d']} (single process "
-              f"{n3d}), |dTcw.t| {dt:.2e} (gate 1e-4), max|dpos| {dpos:.2e} "
-              f"(gate 1e-3), statuses equal on {agree:.4f} (gate 0.98), "
-              f"every rank's state checksum equal to the others' on every "
-              f"frame; launches per rank {launches[0]} "
-              f"(all ranks {'equal' if launches.count(launches[0]) == n else launches}); "
-              f"ms/frame sharded {statistics.median(outs[0]['ms']):.2f} "
-              f"(frames {[round(x, 2) for x in outs[0]['ms']]}), single "
-              f"process {statistics.median(ms):.2f} "
-              f"(frames {[round(x, 2) for x in ms]}); {n} processes share "
-              f"the card: a measurement, no speed-up expected")
-        if not (outs[0]["n_tracked_3d"] == n3d and dt <= 1e-4
-                and dpos <= 1e-3 and agree >= 0.98
-                and all(x == want for x in launches)):
-            raise AssertionError(f"parallel: sharded frame outside the "
-                                 f"gates (launches {launches}, want {want})")
 
         # NCCL, world size 1, in this process.
         cam_b, poses0, L0, prob = bench_problem.ba_problem(
@@ -1512,10 +1467,13 @@ def parallel_phase(dev, card: str):
         try:
             mesh = sharding.make_mesh(dev)
             assert mesh.group is not None and mesh.world_size == 1
-            check_sharded_ba(
+            outs = [dryrun.TASKS["kf_sharded_ba"](
+                mesh, _np(cam_b), _np(poses0), _np(L0), _np(prob), 5, 32)]
+            dryrun.report_ba(
+                "[parallel]",
                 f"kf-sharded BA on {dist.get_backend()} world size 1",
-                lambda *a: [dryrun.TASKS["kf_sharded_ba"](mesh, *a)], cam_b,
-                poses0, L0, prob, plain)
+                dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob, plain),
+                1, L0, prob)
         finally:
             dist.destroy_process_group()
 

@@ -32,9 +32,12 @@ def initial_keypoints(max_points: int, height: int, width: int,
 
 def build_bench_problem(max_points: int = 768, height: int = 480,
                         width: int = 640, max_new_kp: int = 256,
-                        device=None, seed: int = 0):
+                        device=None, seed: int = 0,
+                        rows: graph_mod.Rows = graph_mod.ALL):
     """Returns (state, raw_frames [6 x [H, W]], mask, cam, config), on
-    the card unless ``device`` says otherwise."""
+    the card unless ``device`` says otherwise. The graph holds ``rows``
+    (all by default; a rank of a sharded run builds only its own); the
+    rest of the state is whole either way."""
     device = resolve(device)
     scene = synthetic.SceneConfig(height=height, width=width,
                                   deform_amp=0.02)
@@ -45,7 +48,7 @@ def build_bench_problem(max_points: int = 768, height: int = 480,
     gray0, _, _ = synthetic.render_frame(0, scene, device)
     pyr0 = klt.build_pyramid(gray0, config.klt_config)
 
-    state = state_mod.empty_state(config, gray0.shape, device)
+    state = state_mod.empty_state(config, gray0.shape, device, rows)
     uv = torch.as_tensor(initial_keypoints(max_points, height, width, seed),
                          device=device)
     positions = cameras.unproject(cam, uv) * 3.0
@@ -59,7 +62,8 @@ def build_bench_problem(max_points: int = 768, height: int = 480,
         keypoints=uv,
         status=torch.zeros(max_points, dtype=torch.int32, device=device),
         refs=refs,
-        graph=graph_mod.initialize(state.graph, positions, valid, 3.0),
+        graph=graph_mod.initialize(state.graph, positions, valid, 3.0,
+                                   rows),
     )
     state = state_mod.insert_temporal_snapshot(state)
     state = state_mod.insert_keyframe(state)

@@ -1,12 +1,13 @@
 """Spawned ranks for sharded runs, and the multi-rank dry run (the
 counterpart of ``__graft_entry__.dryrun_multichip``).
 
-``World(n, device)`` spawns n rank processes (the ``spawn`` start method;
-they import the port and torch, nothing else of the repo) on one device
-(the card unless the caller passes another, ``utils.device``),
-joined in one gloo process group (NCCL refuses several ranks on one card)
-through a ``FileStore`` in a fresh directory, each with one CPU thread,
-and keeps them for as many ``run`` calls as the caller makes:
+``World(n, device, backend=...)`` spawns n rank processes (the ``spawn``
+start method; they import the port and torch, nothing else of the repo) on
+``device`` (the card unless the caller passes another, ``utils.device``),
+joined in one process group through a ``FileStore`` in a fresh directory,
+each with one CPU thread: gloo, every rank on ``device``; or NCCL, rank r
+on card r (NCCL refuses several ranks on one card). It keeps them for as
+many ``run`` calls as the caller makes:
 ``run(task, *args)`` runs ``TASKS[task](mesh, *args)`` on every rank and
 returns each rank's result. Arguments and results are numpy
 trees (``convert.to_numpy`` of port structures). A rank that fails ends
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import os
 import queue
+import statistics
 import sys
 import tempfile
 import time
@@ -31,7 +33,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from nrslam_tpu_torch import convert
+from nrslam_tpu_torch import bench_problem, convert
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.parallel import ba_shard, multihost, sharding
 from nrslam_tpu_torch.parallel.tracking_shard import frame_step_sharded
@@ -101,35 +103,87 @@ def kf_sharded_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
     return convert.to_numpy((poses, L)) + (ms,)
 
 
-@task
-def sharded_frames(mesh, state, frames, mask, cam, config, keyframes):
-    """``frame_step_sharded`` over ``frames`` from the whole ``state``
-    (each rank feeds every frame; ``keyframes`` flags them). Returns the
-    whole final state as this rank holds it after a gather, the frames'
-    n_tracked_3d and LOST flags, ms per frame and the kernel launches."""
+def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
+                gather_graph: bool):
+    """``frame_step_sharded`` from the rank's shard ``local`` over the numpy
+    ``frames`` (``keyframes`` flags them). Per frame: n_tracked_3d, the
+    LOST flag, ms, the bytes, payloads and largest payload (elements) of
+    its collectives (``sharding.traffic``; feeding the frame is not part
+    of it) and the shapes of the rank's graph leaves after it. Also the
+    kernel launches and, on the card, the rank's peak allocated bytes over
+    the frames (``max_memory_allocated`` from the resident state,
+    ``resident``). Rank 0 returns the whole final state (a gather after
+    the frames; without the KLT references, and with the graph only when
+    ``gather_graph``)."""
     from nrslam_tpu_torch.parallel.tracking_shard import state_axes
 
-    cam = to_device(cam, mesh.device)
     mask = multihost.replicate_frame(mesh, mask)
-    local = sharding.shard_state(to_device(state, mesh.device), mesh,
-                                 config.max_points)
+    cuda = torch.device(mesh.device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        resident = torch.cuda.memory_allocated(mesh.device)
     before = _launch_counts()
-    n3d, lost, ms = [], [], []
+    out = {k: [] for k in ("n_tracked_3d", "lost", "ms", "bytes",
+                           "payloads", "max_payload", "graph_shapes")}
     for frame, kf in zip(frames, keyframes):
         gray = multihost.replicate_frame(mesh, frame)
         _sync(mesh.device)
+        sharding.traffic.reset()
         t0 = time.perf_counter()
         local, res = frame_step_sharded(mesh, local, gray, mask, cam, config,
                                         bool(kf))
         _sync(mesh.device)
-        ms.append(1e3 * (time.perf_counter() - t0))
-        n3d.append(int(res.n_tracked_3d))
-        lost.append(bool(res.lost))
-    launches = {k: v - before[k] for k, v in _launch_counts().items()}
-    full = sharding.unshard_state(local, mesh,
-                                  state_axes(config, tuple(mask.shape)))
-    return {"state": convert.to_numpy(full), "n_tracked_3d": n3d,
-            "lost": lost, "ms": ms, "launches": launches}
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["bytes"].append(sharding.traffic.bytes)
+        out["payloads"].append(sharding.traffic.count)
+        out["max_payload"].append(sharding.traffic.max_elements)
+        out["graph_shapes"].append(sorted({tuple(x.shape)
+                                           for x in local.graph[:-1]}))
+        out["n_tracked_3d"].append(int(res.n_tracked_3d))
+        out["lost"].append(bool(res.lost))
+    out["launches"] = {k: v - before[k] for k, v in _launch_counts().items()}
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(mesh.device)
+                         if cuda else None)
+    out["resident_bytes"] = resident if cuda else None
+    axes = state_axes(config, tuple(mask.shape))._replace(refs=None)
+    local = local._replace(refs=None)
+    if not gather_graph:
+        axes, local = axes._replace(graph=None), local._replace(graph=None)
+    full = sharding.unshard_state(local, mesh, axes)
+    out["state"] = convert.to_numpy(full) if mesh.rank == 0 else None
+    return out
+
+
+@task
+def sharded_frames(mesh, state, frames, mask, cam, config, keyframes,
+                   gather_graph=True):
+    """``frame_step_sharded`` over ``frames`` from the whole ``state``
+    (each rank feeds every frame and takes its slots and graph rows of the
+    state). Returns ``_run_frames``'s record."""
+    cam = to_device(cam, mesh.device)
+    local = sharding.shard_state(to_device(state, mesh.device), mesh,
+                                 config.max_points)
+    return _run_frames(mesh, local, frames, mask, cam, config, keyframes,
+                       gather_graph)
+
+
+@task
+def bench_frames(mesh, max_points, keyframes, gather_graph=False):
+    """``bench_problem.build_bench_problem`` (the main path's 640x480 and
+    256 new keypoints, seed 0) at ``max_points`` built on the rank, with
+    only the rank's rows of the graph (nothing of size [P, P] travels or
+    is built), then ``frame_step_sharded`` over its first
+    ``len(keyframes)`` frames. Returns ``_run_frames``'s record."""
+    state, frames, mask, cam, config = bench_problem.build_bench_problem(
+        max_points, device=mesh.device,
+        rows=sharding.MeshRows(mesh, max_points))
+    local = sharding.shard_state(state._replace(graph=None), mesh,
+                                 max_points)._replace(graph=state.graph)
+    frames = [f.cpu().numpy() for f in frames[:len(keyframes)]]
+    del state
+    return _run_frames(mesh, local, frames, mask.cpu().numpy(), cam, config,
+                       keyframes, gather_graph)
 
 
 @task
@@ -262,6 +316,207 @@ def dryrun(mesh):
 
 
 # ---------------------------------------------------------------------------
+# Sharded runs held to one process (chip_smoke.py [parallel], multicard)
+# ---------------------------------------------------------------------------
+
+# The JAX tests' gates of a sharded frame against one process.
+FRAME_GATES = {"dt": 1e-4, "dpos": 1e-3, "agree": 0.98, "dgraph": 1e-3}
+
+
+def frames_against_single(world, device, max_points: int, keyframes,
+                          gather_graph: bool) -> dict:
+    """``bench_frames`` on the world's ranks against ``system.frame_step``
+    on the same seeded problem in this process on ``device``. Returns the
+    readings (n_tracked_3d, |dTcw.t|, max|dpos|, the share of equal
+    statuses, with ``gather_graph`` the largest graph difference, launches
+    per rank, ms per frame, collective bytes per frame, peak allocated
+    bytes per rank and of the single process) and ``ok``: every gate of
+    ``FRAME_GATES``, n_tracked_3d equal, launches as the frames dictate
+    (pose-only and joint once a frame, BA once a keyframe) on every rank,
+    equal collective bytes on every rank and no payload of ``P * P / n``
+    elements or more."""
+    from nrslam_tpu_torch.slam import system
+
+    device = torch.device(device)
+    outs = world.run("bench_frames", max_points, keyframes, gather_graph)
+    s, frames, mask, cam, config = bench_problem.build_bench_problem(
+        max_points, device=device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        resident = torch.cuda.memory_allocated(device)
+    n3d, ms = [], []
+    for f, kf in zip(frames, keyframes):
+        _sync(device)
+        t0 = time.perf_counter()
+        s, res = system.frame_step(s, f, mask, cam, config, bool(kf))
+        _sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        n3d.append(int(res.n_tracked_3d))
+    got = outs[0]["state"]
+    r = {"n_tracked_3d": outs[0]["n_tracked_3d"], "single_n_tracked_3d": n3d,
+         "dt": float(abs(got.Tcw.t - s.Tcw.t.cpu().numpy()).max()),
+         "dpos": float(abs(got.positions
+                           - s.positions.cpu().numpy()).max()),
+         "agree": float(np.mean(got.status == s.status.cpu().numpy())),
+         "launches": [o["launches"] for o in outs],
+         "ms": outs[0]["ms"], "single_ms": ms,
+         "bytes": [o["bytes"] for o in outs],
+         "payloads": outs[0]["payloads"],
+         "max_payload": max(max(o["max_payload"]) for o in outs),
+         "graph_shapes": outs[0]["graph_shapes"],
+         "peak_bytes": [o["peak_bytes"] for o in outs],
+         "resident_bytes": [o["resident_bytes"] for o in outs],
+         "single_peak_bytes": (torch.cuda.max_memory_allocated(device)
+                               if cuda else None),
+         "single_resident_bytes": resident if cuda else None}
+    want = {"pose_only": len(keyframes), "pose_deformation": len(keyframes),
+            "bundle_adjustment": sum(map(bool, keyframes))}
+    g = FRAME_GATES
+    r["ok"] = (r["n_tracked_3d"] == n3d and r["dt"] <= g["dt"]
+               and r["dpos"] <= g["dpos"] and r["agree"] >= g["agree"]
+               and all(x == want for x in r["launches"])
+               and all(b == r["bytes"][0] for b in r["bytes"])
+               and r["max_payload"] < max_points * max_points // world.n)
+    if gather_graph:
+        equal = all(np.array_equal(getattr(got.graph, f),
+                                   getattr(s.graph, f).cpu().numpy())
+                    for f in ("exists", "bad"))
+        r["dgraph"] = max(float(abs(getattr(got.graph, f)
+                                    - getattr(s.graph, f).cpu().numpy()
+                                    ).max())
+                          for f in ("first_distance", "max_distance",
+                                    "min_distance", "weight"))
+        r["ok"] = r["ok"] and equal and r["dgraph"] <= g["dgraph"]
+    return r
+
+
+def ba_against_plain(outs, cam, poses0, L0, prob, plain) -> dict:
+    """The keyframe-sharded BA's per-rank results (``kf_sharded_ba``)
+    against the plain single-process BA ``plain`` = (poses, L): |dpose|,
+    |dL|, the reprojection RMSE over the observed copies before and after,
+    ms, and ``ok``: poses <= 2e-4, landmark copies <= 2e-3, RMSE < 0.2x
+    its start."""
+    poses, L, ms = outs[0]
+    t_ref, L_ref = plain[0].t.cpu().numpy(), plain[1].cpu().numpy()
+    q, q_ref = poses.q, plain[0].q.cpu().numpy()
+    d_q = min(float(np.linalg.norm(q - q_ref)),
+              float(np.linalg.norm(q + q_ref)))
+    d_pose = max(float(abs(poses.t - t_ref).max()), d_q)
+    d_land = float(abs(L - L_ref).max())
+    obs_ok = (prob.obs_valid & prob.kf_valid[:, None]).cpu()
+
+    def rmse(q, t, LL):
+        dev = cam.params.device
+        pred = cameras.project(cam, se3.apply(se3.SE3(
+            torch.as_tensor(q, device=dev)[:, None],
+            torch.as_tensor(t, device=dev)[:, None]),
+            torch.as_tensor(LL, device=dev))).cpu()
+        r2 = torch.sum((pred - prob.obs.cpu()) ** 2, -1)[obs_ok]
+        return float(torch.sqrt(torch.mean(r2)))
+
+    r0 = rmse(poses0.q.cpu().numpy(), poses0.t.cpu().numpy(),
+              L0.cpu().numpy())
+    r1 = rmse(poses.q, poses.t, L)
+    return {"d_pose": d_pose, "d_land": d_land, "rmse0": r0, "rmse1": r1,
+            "ms": ms, "ok": d_pose <= 2e-4 and d_land <= 2e-3
+            and r1 < 0.2 * r0}
+
+
+def report_ba(tag: str, label: str, r: dict, n: int, L0, prob):
+    """Prints ``ba_against_plain``'s readings ``r`` for n ranks as a
+    ``tag`` line, and raises AssertionError outside its gates."""
+    K, P = L0.shape[:2]
+    print(f"{tag} {label}: K={K} P={P} E={int(prob.pairs.valid.sum())} "
+          f"over {n} ranks: |dpose|={r['d_pose']:.2e} (gate 2e-4) "
+          f"|dL|={r['d_land']:.2e} (gate 2e-3) against the plain BA; RMSE "
+          f"{r['rmse0']:.4f} -> {r['rmse1']:.4f} px; {r['ms']:.2f} ms")
+    if not r["ok"]:
+        raise AssertionError(f"{tag} {label} outside the gates")
+
+
+def whole_gather_frame_bytes(config, image_shape) -> int:
+    """Each rank's collective payload bytes for one frame of the sharded
+    frame that gathers the whole state (the design before the graph was
+    row-sharded), worked out from its gathers: every point-axis leaf of
+    the state but the KLT references, the six [P, P] graph leaves included
+    (bool as uint8), once; then the keypoints and statuses after point
+    reuse; then the checksum compare ([2, leaves] int64)."""
+    from nrslam_tpu_torch.parallel.tracking_shard import state_axes
+    from nrslam_tpu_torch.slam import state as state_mod
+
+    full = state_mod.empty_state(config, image_shape, "meta")._replace(
+        refs=None)
+    axes = state_axes(config, image_shape)._replace(refs=None)
+    sizes, leaves = [], []
+
+    def count(x, d):
+        leaves.append(1)
+        if d is not None:
+            sizes.append(x.numel() * (1 if x.dtype == torch.bool
+                                      else x.element_size()))
+        return x
+
+    tree_map(count, full, axes)
+    P = config.max_points
+    return sum(sizes) + P * (2 * 4 + 4) + 2 * len(leaves) * 8
+
+
+def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
+                  predicted=None):
+    """Prints ``frames_against_single``'s readings ``r`` as ``tag`` lines
+    (the frames, the collective bytes beside the whole-state gather's and
+    ``predicted``'s, the peak memory on the card), and raises
+    AssertionError outside its gates."""
+    from nrslam_tpu_torch.slam.state import Config
+
+    P, n, mb = max_points, len(r["launches"]), 1e6
+    same = r["launches"].count(r["launches"][0]) == n
+    pred = predicted or {}
+    kf_at = [i + 1 for i, k in enumerate(keyframes) if k]
+    graph = (f", graph gathered once at the end: edges and bad flags "
+             f"equal, max|d| distances and weights {r['dgraph']:.2e} (gate "
+             f"1e-3)" if "dgraph" in r else "")
+    print(f"{tag} sharded frame 640x480 P={P}/256 on {card}, "
+          f"{len(keyframes)} frames (keyframe at frame {kf_at}) over {n} "
+          f"ranks: n_tracked_3d {r['n_tracked_3d']} (single process "
+          f"{r['single_n_tracked_3d']}), |dTcw.t| {r['dt']:.2e} (gate 1e-4), "
+          f"max|dpos| {r['dpos']:.2e} (gate 1e-3), statuses equal on "
+          f"{r['agree']:.4f} (gate 0.98){graph}, every rank's state checksum "
+          f"equal to the others' on every frame; launches per rank "
+          f"{r['launches'][0]} (all ranks "
+          f"{'equal' if same else r['launches']}"
+          f"); graph leaves per rank {r['graph_shapes'][-1]}; "
+          f"ms/frame sharded {statistics.median(r['ms']):.2f} (frames "
+          f"{[round(x, 2) for x in r['ms']]}), single process "
+          f"{statistics.median(r['single_ms']):.2f} (frames "
+          f"{[round(x, 2) for x in r['single_ms']]})")
+    whole = whole_gather_frame_bytes(
+        Config(max_points=P, max_new_keypoints=256), (480, 640))
+    print(f"{tag} P={P} collective payload bytes per frame per rank "
+          f"(sharding.traffic): {r['bytes'][0]} ({r['payloads']} payloads, "
+          f"largest {r['max_payload']} elements, P*P/n = {P * P // n}); all "
+          f"ranks equal: {r['bytes'].count(r['bytes'][0]) == n}; gathering "
+          f"the whole state, graph included: {whole} per frame "
+          f"({whole / max(r['bytes'][0]):.1f}x)"
+          + (f"; predicted (non-keyframe, keyframe) {pred['bytes']}"
+             if "bytes" in pred else ""))
+    if r["peak_bytes"][0] is not None:
+        print(f"{tag} P={P} peak allocated over the frames "
+              f"(max_memory_allocated) per rank "
+              f"{[round(x / mb, 2) for x in r['peak_bytes']]} MB (resident "
+              f"state {[round(x / mb, 2) for x in r['resident_bytes']]}), "
+              f"single process {r['single_peak_bytes'] / mb:.2f} MB "
+              f"(resident {r['single_resident_bytes'] / mb:.2f})"
+              + (f"; predicted rank {pred['rank_peak_mb']}, single "
+                 f"{pred['single_peak_mb']} MB" if "rank_peak_mb" in pred
+                 else ""))
+    if not r["ok"]:
+        raise AssertionError(f"{tag} sharded frame P={P} outside the gates")
+
+
+# ---------------------------------------------------------------------------
 # The world of spawned ranks
 # ---------------------------------------------------------------------------
 
@@ -269,12 +524,19 @@ def _loaded_jax() -> bool:
     return any(m.split(".")[0] in ("jax", "nrslam_tpu") for m in sys.modules)
 
 
-def _rank_main(rank, n, device, store_path, inbox, outbox):
+def rank_device(device, rank: int, backend: str) -> torch.device:
+    """Rank r's device: card r on NCCL, else ``device`` as asked."""
+    return (torch.device("cuda", rank) if backend == "nccl"
+            else torch.device(device))
+
+
+def _rank_main(rank, n, device, backend, store_path, inbox, outbox):
     torch.set_num_threads(1)
-    device = torch.device(device)
+    device = rank_device(device, rank, backend)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    multihost.initialize("gloo", n, rank, store=dist.FileStore(store_path, n))
+    multihost.initialize(backend, n, rank,
+                         store=dist.FileStore(store_path, n))
     mesh = sharding.make_mesh(device)
     try:
         while True:
@@ -296,10 +558,14 @@ def _rank_main(rank, n, device, store_path, inbox, outbox):
 class World:
     """n spawned ranks in one process group (see the module's doc)."""
 
-    def __init__(self, n: int, device=None, store_dir=None):
+    def __init__(self, n: int, device=None, store_dir=None,
+                 backend: str = "gloo"):
         if n < 2:
             raise ValueError("a World spawns at least two ranks")
         device = resolve(device)
+        if backend == "nccl" and torch.cuda.device_count() < n:
+            raise ValueError(f"NCCL needs a card per rank: {n} ranks, "
+                             f"{torch.cuda.device_count()} cards visible")
         ctx = mp.get_context("spawn")
         self.n = n
         self._tmp = tempfile.TemporaryDirectory(dir=store_dir)
@@ -308,7 +574,7 @@ class World:
         self._inboxes = [ctx.Queue() for _ in range(n)]
         self._procs = [ctx.Process(
             target=_rank_main, daemon=True,
-            args=(r, n, str(device), store_path, self._inboxes[r],
+            args=(r, n, str(device), backend, store_path, self._inboxes[r],
                   self._outbox)) for r in range(n)]
         for p in self._procs:
             p.start()

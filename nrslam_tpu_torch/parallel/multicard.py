@@ -1,0 +1,72 @@
+"""The row-sharded frame and the keyframe-sharded BA with one card per rank
+on NCCL, each held to one process on card 0 under the gates of
+``chip_smoke.py``'s ``[parallel]`` (which runs them with 4 gloo ranks on
+one card).
+
+    python -m nrslam_tpu_torch.parallel.multicard [N]
+
+on a host with at least N visible cards (N: every visible card, at least
+2). Builds the kernels from ``csrc/`` once, spawns N ranks (``dryrun.World``
+with the NCCL backend: rank r on card r), then runs the keyframe-sharded
+BA at K=8, P=768 (8 and 5 of 8 keyframes valid) and the row-sharded frame
+at 640x480 with 256 new keypoints: P=768 for 6 frames (keyframe at frame
+5) and P=4096 for 3 (keyframe at frame 3), with ``dryrun``'s readings and
+gates (``report_ba``, ``report_frames``). Prints the cards' names and power
+limits first, and raises at the first check outside its gates. A
+measurement on several cards; ``chip_smoke.py`` needs one.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+import torch
+
+from nrslam_tpu_torch import bench_problem, convert, kernels
+from nrslam_tpu_torch.parallel import dryrun
+from nrslam_tpu_torch.solver import bundle_adjustment as ba
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("multicard: no CUDA device")
+    n = int(argv[0]) if argv else torch.cuda.device_count()
+    if n < 2 or torch.cuda.device_count() < n:
+        raise SystemExit(f"multicard: {n} ranks need {max(n, 2)} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines())
+    print(f"[multicard] {cards}")
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"[multicard] kernels built in {time.perf_counter() - t0:.2f} s")
+    dev = torch.device("cuda", 0)
+    with dryrun.World(n, dev, backend="nccl") as world:
+        print(f"[multicard] {n} NCCL ranks, rank r on cuda:r, up in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for n_valid in (8, 5):
+            cam, poses0, L0, prob = bench_problem.ba_problem(
+                n_valid=n_valid, device=dev, K=8, P=768)
+            plain = ba.local_deformable_ba_plain(cam, poses0, L0, prob, 5, 32)
+            outs = world.run("kf_sharded_ba", *convert.to_numpy(
+                (cam, poses0, L0, prob)), 5, 32)
+            dryrun.report_ba(
+                "[multicard]", f"kf-sharded BA {n_valid}/8 valid",
+                dryrun.ba_against_plain(outs, cam, poses0, L0, prob, plain),
+                n, L0, prob)
+        for P, kfs in ((768, [False] * 4 + [True, False]),
+                       (4096, [False, False, True])):
+            r = dryrun.frames_against_single(world, dev, P, kfs,
+                                             gather_graph=P <= 768)
+            dryrun.report_frames("[multicard]", f"{n} cards", r, P, kfs)
+    print("[multicard] ok")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

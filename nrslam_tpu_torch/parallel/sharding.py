@@ -8,7 +8,8 @@ array whose extent along some axis is ``max_points`` (the first such axis:
 ``[K, P, ...]`` / ``[T, P, ...]`` along their point axis); everything else
 (poses, ring heads, scalars) is replicated. Eager PyTorch has no SPMD
 partitioner, so the collectives are explicit (``tracking_shard``,
-``ba_shard``).
+``ba_shard``); ``MeshRows`` is the rank's block of graph rows for the
+row-block graph, tracking and mapping functions (``slam.graph.Rows``).
 
 Every collective here is an ``all_reduce``: a gather is the SUM of a
 zero-filled buffer with one block per rank, a halo exchange is a gather
@@ -28,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from nrslam_tpu_torch.geometry import cameras, se3
+from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.solver import pose_only
 from nrslam_tpu_torch.utils.device import resolve
 from nrslam_tpu_torch.utils.tree import tree_map
@@ -62,6 +64,28 @@ def make_mesh(device=None, axis: str = "pt", group=None) -> Mesh:
 # Collectives (all_reduce only)
 # ---------------------------------------------------------------------------
 
+class Traffic:
+    """What this process's collectives carried since ``reset``: the number
+    of ``all_reduce`` payloads, their bytes (the buffer each rank hands to
+    the collective; a ring all-reduce moves about twice that per rank) and
+    the largest payload's element count."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.count = self.bytes = self.max_elements = 0
+
+    def add(self, x):
+        self.count += 1
+        self.bytes += x.numel() * x.element_size()
+        self.max_elements = max(self.max_elements, x.numel())
+
+
+# This process's count, read and reset by the sharded runs (``dryrun``).
+traffic = Traffic()
+
+
 def _wire(x):
     """``x`` in a dtype every backend reduces (bool travels as uint8)."""
     return x.to(torch.uint8) if x.dtype == torch.bool else x
@@ -78,6 +102,7 @@ def _all_reduce_packed(mesh: Mesh, tensors, op):
         by_dtype.setdefault(_wire(x).dtype, []).append(k)
     for ks in by_dtype.values():
         flat = torch.cat([_wire(tensors[k]).reshape(-1) for k in ks])
+        traffic.add(flat)
         dist.all_reduce(flat, op=op, group=mesh.group)
         for k, part in zip(ks, torch.split(
                 flat, [tensors[k].numel() for k in ks])):
@@ -112,6 +137,35 @@ def all_gather_rows(mesh: Mesh, tensors, dims=None):
         buf.narrow(d, mesh.rank * m, m).copy_(x)
         bufs.append(buf)
     return _all_reduce_packed(mesh, bufs, dist.ReduceOp.SUM)
+
+
+def rank_block(mesh: Mesh, extent: int) -> slice:
+    """This rank's contiguous block of an axis of ``extent``: ``[rank * m,
+    (rank + 1) * m)``, m = extent / n (the layout of every sharded axis)."""
+    m = extent // mesh.world_size
+    return slice(mesh.rank * m, (mesh.rank + 1) * m)
+
+
+class MeshRows(graph_mod.Rows):
+    """This rank's block of the graph's rows (``rank_block``): row results
+    are gathered (``all_gather_rows``), hit counts MAX-reduced, and an axis
+    of any length shared out in contiguous blocks of ``ceil(N / n)``."""
+
+    def __init__(self, mesh: Mesh, max_points: int):
+        super().__init__(rank_block(mesh, max_points))
+        self.mesh = mesh
+
+    def gather(self, *blocks):
+        return tuple(all_gather_rows(self.mesh, blocks))
+
+    def reduce_max(self, x):
+        return all_reduce_max(self.mesh, x)[0]
+
+    def share(self, x):
+        size = -(-x.shape[0] // self.mesh.world_size)
+        start = self.mesh.rank * size
+        idx = torch.arange(start, start + size, device=x.device)
+        return x[torch.clamp(idx, max=x.shape[0] - 1)]
 
 
 def same_on_ranks(mesh: Mesh, x) -> bool:
@@ -175,14 +229,15 @@ def _spec_for(shape, max_points: int) -> Optional[int]:
 
 
 def local_block(mesh: Mesh, x, d: int):
-    """This rank's contiguous block of ``x`` along axis ``d``."""
-    m = x.shape[d] // mesh.world_size
-    return x.narrow(d, mesh.rank * m, m)
+    """This rank's block of ``x`` along axis ``d`` (``rank_block``)."""
+    b = rank_block(mesh, x.shape[d])
+    return x.narrow(d, b.start, b.stop - b.start)
 
 
 def shard_state(state, mesh: Mesh, max_points: int):
     """This rank's contiguous ``P / n`` slots of every point-axis array of
-    ``state`` (any tree), on the mesh's device; the rest replicated."""
+    ``state`` (any tree), on the mesh's device, copies that own their
+    memory (the whole arrays can be freed); the rest replicated."""
     if max_points % mesh.world_size:
         raise ValueError(f"max_points={max_points} does not split over "
                          f"{mesh.world_size} ranks")
@@ -192,7 +247,8 @@ def shard_state(state, mesh: Mesh, max_points: int):
             return x
         x = x.to(mesh.device)
         d = _spec_for(x.shape, max_points)
-        return x if d is None else local_block(mesh, x, d).contiguous()
+        return x if d is None else local_block(mesh, x, d).clone(
+            memory_format=torch.contiguous_format)
 
     return tree_map(place, state)
 

@@ -3,32 +3,43 @@
 ``_fused_frame_impl`` on a ``pt``-sharded state, where XLA inserts the
 collectives; here they are explicit).
 
-Per frame, on every rank:
+Between frames each rank holds its contiguous ``P / n`` slots of every
+point-axis array, its ``[P / n, P]`` rows of the deformation graph and the
+KLT references of its slots. Per frame, on every rank:
 
 1. the pyramid of the (replicated) frame;
 2. point-parallel over the rank's own slots: the promotion of
    just-triangulated points and the KLT data association;
-3. one gather of the state's point-axis arrays (all but the KLT
-   references, which never leave their rank), then on the gathered arrays
-   ``tracking.track_camera_and_deformation``: the pose-only LM and the
-   joint pose+deformation solve (on the card, the pose-only and the joint
-   kernel on every rank), the graph update and the lost-point drag;
-4. point reuse's KLT, point-parallel again on the rank's rows, and one
-   gather of the keypoints and statuses it changed;
-5. on the gathered arrays: on keyframes the new features and the keyframe
-   snapshot, the temporal snapshot, the LOST latch and the mapping
-   (triangulation; on keyframes the window BA, on the card the BA kernel on
-   every rank). Every rank runs the same code on the same bits, so every
-   rank must end with the same state: a checksum of each rank's
-   (``sharding.digest``) is compared across ranks, and every rank raises
-   if they differ;
-6. the rank's rows of the result, with the KLT references refreshed on its
-   own slots on keyframes.
+3. one gather of the state's point-axis arrays, all but the graph and the
+   KLT references, which never leave their rank;
+4. ``tracking.track_camera_and_deformation`` on the gathered arrays with the
+   rank's graph rows (``sharding.MeshRows``): the neighbour table's top-k
+   on the rank's rows, gathered to ``[P, k]``; the pose-only and joint
+   solves replicated (on the card, the pose-only and the joint kernel on
+   every rank); the graph update and the ``starved`` test on the rank's
+   rows, ``starved`` gathered; the lost-point drag;
+5. point reuse's KLT on the rank's slots, and one gather of the keypoints
+   and statuses it changed;
+6. on keyframes the new features (dropping the recycled slots' edges from
+   the rank's rows) and the keyframe snapshot; the temporal snapshot and
+   the LOST latch; the mapping: the triangulation's neighbour search and
+   rigid path on the rank's slots (gathered), the deformable path on the
+   rank's ``C / n`` block of the candidates (gathered), the vote
+   replicated and the new edges on the rank's rows; on keyframes the
+   neighbour table on the rank's rows (gathered) and the window BA
+   replicated (on the card the BA kernel on every rank);
+7. a checksum of every replicated leaf (``sharding.digest``: pose, the
+   gathered ``[P]`` arrays, the rings) compared across ranks; every rank
+   raises if they differ. The graph rows differ between ranks by design;
+8. the rank's slots of the result, with the KLT references refreshed on
+   them on keyframes.
 
-Ties in the stable top-k and argsort orders (graph neighbours, new slots,
-triangulation candidates) are taken on the gathered arrays, never per
-shard. The pose-only and joint solves and the graph stay replicated:
-row-sharding them is later work.
+Only ``[P]``, ``[P, k]`` and ring (``[K, P]`` / ``[T, P]``) arrays are
+gathered; no ``[P, P]`` array is gathered or built whole on a rank.
+Ties in the stable top-k and argsort orders (the triangulation candidates,
+new slots, the BA window) are taken on gathered arrays, and a row's top-k
+(graph neighbours, triangulation neighbours) on its whole columns. The
+three solves stay whole-solver kernels replicated on every rank.
 """
 
 from __future__ import annotations
@@ -54,19 +65,27 @@ def state_axes(config: Config, image_shape):
         state_mod.empty_state(config, image_shape, "meta"), config.max_points)
 
 
-def _rows(mesh: Mesh, full, axes):
-    """This rank's block of every point-axis leaf of ``full``."""
-    return tree_map(lambda x, d: x if d is None or x is None
-                    else sharding.local_block(mesh, x, d), full, axes)
+def _slots(mesh: Mesh, full, axes):
+    """This rank's block of every point-axis leaf of ``full`` (copies, so
+    the gathered arrays are freed), with ``full``'s graph, which holds the
+    rank's rows already."""
+    mine = tree_map(lambda x, d: x if d is None or x is None
+                    else sharding.local_block(mesh, x, d).clone(
+                        memory_format=torch.contiguous_format),
+                    full._replace(graph=None), axes)
+    return mine._replace(graph=full.graph)
 
 
 def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
                        cam: cameras.Camera, config: Config,
                        make_kf: bool):
     """``slam.system.frame_step`` on this rank's shard of the state
-    (``sharding.shard_state``). Returns (the rank's shard of the new state,
-    the frame's ``tracking.FrameResult``, the same on every rank)."""
-    axes = state_axes(config, tuple(gray.shape))
+    (``sharding.shard_state``: the graph's leaves are the rank's ``[P / n,
+    P]`` rows). Returns (the rank's shard of the new state, the frame's
+    ``tracking.FrameResult``, the same on every rank)."""
+    axes = state_axes(config, tuple(gray.shape))._replace(refs=None,
+                                                          graph=None)
+    rows = sharding.MeshRows(mesh, config.max_points)
     old = local_state
     pyramid = klt.build_pyramid(gray, config.klt_config)
 
@@ -74,11 +93,11 @@ def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
     s = tracking.data_association(s, pyramid, config)
 
     refs = s.refs
-    full = sharding.unshard_state(s._replace(refs=None), mesh,
-                                  axes._replace(refs=None))
-    full = tracking.track_camera_and_deformation(full, cam, config)
+    full = sharding.unshard_state(s._replace(refs=None, graph=None), mesh,
+                                  axes)._replace(graph=s.graph)
+    full = tracking.track_camera_and_deformation(full, cam, config, rows)
 
-    mine = _rows(mesh, full, axes)._replace(refs=refs)
+    mine = _slots(mesh, full, axes)._replace(refs=refs)
     mine = tracking.point_reuse(mine, pyramid, cam, config)
     keypoints, status = sharding.all_gather_rows(
         mesh, [mine.keypoints, mine.status])
@@ -87,16 +106,18 @@ def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
     n3d = torch.sum(state_mod.tracked_with_3d(full).to(torch.int32),
                     dtype=torch.int32)
     if make_kf:
-        full = tracking.add_keyframe_features(full, pyramid, mask, config)
+        full = tracking.add_keyframe_features(full, pyramid, mask, config,
+                                              rows)
     full = state_mod.insert_temporal_snapshot(full)
     lost = full.lost | (n3d < config.min_tracked_exit)
     full = mapping_mod.do_mapping(full._replace(lost=lost), cam, config,
-                                  has_new_keyframe=make_kf)
-    if not sharding.same_on_ranks(mesh, sharding.digest(full)):
+                                  make_kf, rows)
+    if not sharding.same_on_ranks(
+            mesh, sharding.digest(full._replace(graph=None))):
         raise RuntimeError("the ranks computed different states from the "
                            "same gathered arrays")
 
-    new = _rows(mesh, full, axes)._replace(refs=refs)
+    new = _slots(mesh, full, axes)._replace(refs=refs)
     if make_kf:
         new = tracking.refresh_reference(new, pyramid, mask, config)
     new = tree.where(old.lost, old, new)

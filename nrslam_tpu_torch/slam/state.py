@@ -90,8 +90,11 @@ class SlamState(NamedTuple):
     lost: torch.Tensor          # bool scalar collapse latch
 
 
-def empty_state(config: Config, image_shape, device=None) -> SlamState:
-    """On the card unless ``device`` says otherwise (``utils.device``)."""
+def empty_state(config: Config, image_shape, device=None,
+                rows: graph_mod.Rows = graph_mod.ALL) -> SlamState:
+    """On the card unless ``device`` says otherwise (``utils.device``);
+    the graph holds ``rows`` (all P by default: a rank of a sharded run
+    holds its P / n)."""
     device = resolve(device)
     P = config.max_points
     K = config.max_keyframes
@@ -121,7 +124,8 @@ def empty_state(config: Config, image_shape, device=None) -> SlamState:
         frame_id=zeros(dtype=i32),
         deformation_mag=zeros(),
         refs=refs,
-        graph=graph_mod.empty(P, config.graph_sigma, device=device),
+        graph=graph_mod.empty(P, config.graph_sigma, device=device,
+                              rows=rows),
         kf_valid=zeros(K, dtype=torch.bool),
         kf_id=full((K,), -1, i32),
         kf_pose=se3.identity((K,), device=device),

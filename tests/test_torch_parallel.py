@@ -14,7 +14,9 @@ BA's math on a window without them.
 Tolerances are the JAX tests': the sharded frame against the JAX
 single-device frame n_tracked_3d equal, Tcw.t 1e-4, positions 1e-3 and
 statuses equal on >= 98% of slots, also over a keyframe with its BA (and
-there against the port's single-process frame as well); the pose system
+there against the port's single-process frame as well, and the graph
+gathered from the ranks' rows: edges and bad flags equal, distances and
+weights 1e-3, the positions' tolerance); the pose system
 1e-5 x max|H|; the
 keyframe-sharded BA poses 2e-4 and landmarks 2e-3 against both the JAX
 single-device BA and the JAX keyframe-sharded BA on 4 virtual devices,
@@ -23,7 +25,9 @@ another order than one einsum, so nothing is held to bit equality with
 one process. The sharded frame raises on every rank unless every rank
 computed the same state from the gathered arrays (a checksum compared
 across ranks before the rank keeps its rows), so a frame that returns has
-passed that check.
+passed that check. The graph stays row-sharded: every rank's graph leaves
+are ``[P / n, P]`` after every frame, and no collective of a frame carries
+a payload of ``P * P / n`` elements (``sharding.traffic``).
 """
 
 import jax
@@ -114,6 +118,8 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
                      [np.asarray(f) for f in raw], np.asarray(mask),
                      _np(cam), to_port(config), kfs)
     got = outs[0]["state"]
+    for out in outs:
+        assert out["graph_shapes"] == [[(16, 64)]] * len(kfs)
     ts, tcam, tmask, tconfig = to_port(js), to_port(cam), to_port(mask), \
         to_port(config)
     jn3d, tn3d = [], []
@@ -135,6 +141,34 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
                                       np.asarray(ref.track_id))
         np.testing.assert_array_equal(got.kf_valid,
                                       np.asarray(ref.kf_valid))
+    jg = jax.device_get(js.graph)
+    for f in ("exists", "bad"):
+        np.testing.assert_array_equal(getattr(got.graph, f),
+                                      np.asarray(getattr(jg, f)))
+    for f in ("first_distance", "max_distance", "min_distance", "weight"):
+        np.testing.assert_allclose(getattr(got.graph, f),
+                                   np.asarray(getattr(jg, f)), atol=1e-3)
+
+
+def test_sharded_frames_keep_graph_rows(world):
+    """At P = 768 (the main path's slots, where a ``[P, P]`` payload would
+    stand out from the ``[P]``, ``[P, k]`` and ring gathers), a non-keyframe
+    and a keyframe on ``dryrun.small_problem``: every rank holds ``[192,
+    768]`` graph leaves after each frame, no collective payload reaches
+    ``P * P / 4`` elements, and a frame's collectives carry less than one
+    ``[P, P]`` float32 matrix; the ranks agree with each other."""
+    P = 768
+    state, gray, mask, cam, config = dryrun.small_problem(P, "cpu")
+    outs = world.run("sharded_frames", convert.to_numpy(state),
+                     [gray.numpy()] * 2, mask.numpy(), convert.to_numpy(cam),
+                     config, [False, True], False)
+    for out in outs:
+        assert out["graph_shapes"] == [[(P // N_RANKS, P)]] * 2
+        assert max(out["max_payload"]) < P * P // N_RANKS
+        assert max(out["bytes"]) < 4 * P * P
+        assert out["n_tracked_3d"] == outs[0]["n_tracked_3d"]
+    assert min(outs[0]["n_tracked_3d"]) >= 100
+    assert outs[0]["state"].graph is None
 
 
 def test_sharded_pose_system_matches(world):
