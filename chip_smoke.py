@@ -32,6 +32,22 @@ prints its seconds):
      pose-only kernel also: one wrapper call runs exactly one device kernel
      (torch.profiler), a 5-round schedule held to plain, and the spread of
      3 seeded permutations of its points ([spread], a measurement);
+  3a. the sharded routes (parallel/solve_shard.py on CUDA tensors: the
+     phase kernels of csrc/pose_only_shard.cu and
+     csrc/pose_deformation_shard.cu, whose partial sums a process group
+     would all-reduce between launches) in this process without a group,
+     so each solves the whole problem: at P=768 (E=5376) and P=384,
+     pinhole and KB8, the pose (|dq|, |dt|) and every valid point's flow
+     against the whole-solver kernels and against the plain drivers, on
+     the rigid scene (deform_amp=0) under the same-device gates below, and
+     at P=768 on the deformed scene under 3x the plain driver's own spread
+     over 8 seeded permutations of the points (never below the same-device
+     gates); two calls bit-identical ([determinism]); each call's phase
+     launches as pose_only_cuda / pose_deformation_cuda
+     .shard_phase_launches count them. Timed at pinhole P=768 deformed:
+     the wrapper (CUDA events), the sum of its phase launches' device time
+     (torch.profiler) and the whole-solver wrapper, with the bound of the
+     work the call reports;
   3b. shared-memory overflow: the pose-only kernel with its points in
      shared memory too (P=768 with 64 threads), and at the sizes that take
      each plan by default (P=131 in registers only, 4096 in shared and
@@ -52,7 +68,7 @@ prints its seconds):
   6. the slice timed at 320x240/P=384/128 new keypoints, then at scale:
      640x480/P=768/256 new keypoints. Each: 4 warm-up frames (two under
      torch.cuda.set_sync_debug_mode("error"), which raises on a host
-     synchronisation it detects), then 25 timed frames at the 1-in-5
+     synchronisation it detects), then 10 timed frames at the 1-in-5
      keyframe cadence; checks the map is alive, the pose-only and joint
      kernels launched once per frame and the BA kernel once per keyframe;
   7. the main path: System.track_image_with_depth from frame 0 on the
@@ -92,34 +108,52 @@ prints its seconds):
      re-initialisation must succeed and the run end TRACKING with >= 10
      tracked 3D points and finite positions; prints each status change;
  12. [parallel]: 4 ranks spawned on this card (parallel.dryrun.World,
-     gloo over a FileStore in the scratch directory) hold, each against
-     its single-process counterpart on the card: the pose normal equations
-     sharded over P=768 points (<= 1e-5 max|H|); the keyframe-sharded BA
+     gloo over a FileStore in the scratch directory; started before phase
+     3 and idle until now) hold, each against its single-process
+     counterpart on the card: the pose normal equations sharded over P=768
+     points (<= 1e-5 max|H|); the pose-only solve and then the joint
+     solve partitioned over the ranks' P/4 blocks (the phase kernels on
+     every rank, partial sums all-reduced between launches) against the
+     whole-solver kernels at pinhole P=768, rigid under the same-device
+     gates and deformed under 3x the spreads phase 3a measured, every rank
+     the same bits (dryrun.report_solves); the keyframe-sharded BA
      at the ring's size (K=8, P=768, E from the K=11 kNN graph,
      n_iters=5, cg_iters=32) against the plain BA (poses <= 2e-4,
      landmarks <= 2e-3, RMSE < 0.2x its start), and a window with 5 of 8
      valid; the row-sharded frame_step (each rank builds the seeded
      problem with only its [P/4, P] graph rows) at 640x480/256 new
      keypoints, P=768 for 6 frames with a keyframe at frame 5 and P=4096
-     for 3 frames with a keyframe at frame 3 (n_tracked_3d equal, Tcw.t
+     for 3 frames with a keyframe at frame 3, the pose-only and joint
+     solves partitioned, against system.frame_step in this process with
+     those two solves by the plain drivers (n_tracked_3d equal, Tcw.t
      <= 1e-4, positions <= 1e-3, statuses equal on >= 98% of slots, at
      P=768 the graph gathered once at the end: edges and bad flags equal,
-     distances and weights <= 1e-3; the pose-only and joint kernels once
-     per frame and the BA kernel once per keyframe on every rank; every
-     collective payload under P*P/4 elements; the frame raises unless
-     every rank's state checksum equals the others' after each frame);
+     distances and weights <= 1e-3) and bit for bit against this process
+     running frame_step_sharded as one rank (every leaf of the state, the
+     counts and flags of every frame); the readings against
+     system.frame_step with the whole-solver kernels are printed (at
+     P=4096 that frame flips one point's gate against the plain drivers:
+     PERF.md §6); launches on every rank as dryrun.frame_launches
+     counts them: per frame one sharded pose-only and one sharded joint
+     call with their phase launches, no whole-solver pose-only or joint
+     launch, the BA kernel once per keyframe; every collective payload
+     under P*P/4 elements; the frame raises unless every rank's state
+     checksum equals the others' after each frame);
      then the keyframe-sharded BA in this process on NCCL with world size
      1 under the same gates. Prints ms/frame of the sharded and the
      single-process frame (four processes share the card: a
      measurement), each rank's collective payload bytes per frame beside
      the whole-state gather's (worked out from its gathers) and the
-     prediction,
-     and at P=4096 each rank's peak allocated memory over the frames
-     beside the single process's and the prediction.
+     prediction, the sharded solves' share of them (collectives and bytes)
+     beside theirs, and at P=4096 each rank's peak allocated memory over
+     the frames beside the single process's and the prediction.
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
-bare launch on prepared inputs); the last line is {"ok": true, "device":
-{...}}.
+bare launch on prepared inputs); the sharded routes' entries count rank
+0's phase launches over the [parallel] frames, ``kernel_ms`` is the device
+time of one call's phase launches, ``max_abs_err`` their largest
+difference from the whole-solver kernels on the rigid scene. The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -521,6 +555,223 @@ def kernel_phase(dev):
     return rec
 
 
+def phase_kernel_ms(fn, names) -> tuple:
+    """(device ms of the phase kernels of one call of ``fn``, their
+    launches), from torch.profiler after one warm-up call: the sum of the
+    CUDA kernels whose name holds ``nrslam`` and one of ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "nrslam" in e.key and any(k in e.key for k in names)):
+            us += getattr(e, "device_time_total", None) or e.cuda_time_total
+            n += e.count
+    return us / 1e3, n
+
+
+def permuted(perm, X, obs, valid, pairs):
+    """The problem with its points reordered by ``perm`` (edges keep their
+    order and follow their endpoints)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return X[perm], obs[perm], valid[perm], pairs._replace(
+        i=inv[pairs.i.long()], j=inv[pairs.j.long()])
+
+
+def joint_spread(cam, seed, X, obs, valid, cp, n: int):
+    """The plain joint driver's own spread on this card under n seeded
+    permutations of the points against its unpermuted solve: (largest
+    |dq|, |dt|; largest per-point |dflow| over valid points)."""
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+
+    T_r, f_r, _ = pd.pose_deformation_plain(cam, seed, X, obs, valid, cp, 1.0)
+    dpose = dflow = 0.0
+    for k in range(n):
+        perm = torch.randperm(X.shape[0], generator=torch.Generator()
+                              .manual_seed(k)).to(X.device)
+        T, f, _ = pd.pose_deformation_plain(
+            cam, seed, *permuted(perm, X, obs, valid, cp), 1.0)
+        dpose = max(dpose, quat_err(T.q, T_r.q),
+                    float(torch.linalg.norm(T.t - T_r.t)))
+        back = torch.empty_like(f)
+        back[perm] = f
+        dflow = max(dflow, float(torch.max(torch.linalg.norm(
+            back - f_r, dim=-1)[valid])))
+    return dpose, dflow
+
+
+def shard_kernel_phase(dev, whole: dict):
+    """The sharded pose-only and joint routes (parallel/solve_shard.py on
+    CUDA tensors: the phase kernels of csrc/pose_only_shard.cu and
+    csrc/pose_deformation_shard.cu) in this process without a process
+    group, so they solve the whole problem, held to the whole-solver
+    kernels and to the plain drivers at P=768 (E=5376) and P=384, pinhole
+    and KB8: on the rigid scene (deform_amp=0) under the same-device gates;
+    on the deformed scene (P=768) within 3x the plain driver's own spread
+    over SPREAD_PERMS seeded permutations of the points (never below the
+    same-device gates); two calls bit-identical; each call's phase
+    launches as ``shard_phase_launches`` counts them. Times the wrapper
+    (CUDA events) and the sum of its phase launches (torch.profiler) beside
+    the whole-solver kernel; the plain drivers' times are ``whole``'s (the
+    [kernel] records, the same problem). Returns (the two routes' records,
+    the deformed P=768 pinhole spreads for [parallel])."""
+    from nrslam_tpu_torch.bench_problem import solver_problem
+    from nrslam_tpu_torch.parallel import sharding, solve_shard
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only
+    from nrslam_tpu_torch.solver import pose_only_cuda as poc
+
+    mesh = sharding.make_mesh(dev)
+    assert mesh.group is None
+    rec, err, spreads = {}, {"pose_only_shard": 0.0,
+                             "pose_deformation_shard": 0.0}, {}
+    for kind, P, deform in (("pinhole", 768, 0.0), ("pinhole", 768, 0.05),
+                            ("kb8", 768, 0.0), ("kb8", 768, 0.05),
+                            ("pinhole", 384, 0.0), ("kb8", 384, 0.0)):
+        cam, T0, X, obs, valid, pairs = solver_problem(
+            kind, device=dev, P=P, deform_amp=deform)
+        label = f"{kind} P={P} {'rigid' if deform == 0 else 'deformed'}"
+
+        def pose_call():
+            return solve_shard.camera_pose_optimization_sharded(
+                mesh, cam, T0, X, obs, valid)
+
+        before = dict(poc.shard_launches)
+        T_s = pose_call()
+        one = {k: v - before[k] for k, v in poc.shard_launches.items()}
+        T_w = poc.camera_pose_optimization_cuda(cam, T0, X, obs, valid)
+        T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs,
+                                                       valid)
+        T_2 = pose_call()
+        same = torch.equal(T_s.q, T_2.q) and torch.equal(T_s.t, T_2.t)
+        d_w = max(quat_err(T_s.q, T_w.q), float(torch.linalg.norm(
+            T_s.t - T_w.t)))
+        d_p = max(quat_err(T_s.q, T_p.q), float(torch.linalg.norm(
+            T_s.t - T_p.t)))
+        tol, gate = SAME_DEVICE_POSE_TOL, "same-device gate"
+        if deform:
+            sq, st = perm_spread(pose_only.camera_pose_optimization_plain,
+                                 cam, T0, X, obs, valid, T_p, SPREAD_PERMS)
+            tol = max(tol, 3 * max(sq, st))
+            gate = (f"3x the plain driver's spread under {SPREAD_PERMS} "
+                    f"permutations, {max(sq, st):.3e}")
+            if (kind, P) == ("pinhole", 768):
+                spreads["pose"] = max(sq, st)
+        print(f"[kernel] pose_only_shard {label}: against the whole-solver "
+              f"kernel {d_w:.3e}, against plain {d_p:.3e} (tol {tol:.3e}, "
+              f"{gate}); phase launches {one}")
+        print(f"[determinism] pose_only_shard {label}: two calls "
+              f"bit-identical={same}")
+        if not (same and d_w < tol and d_p < tol
+                and one == poc.shard_phase_launches()):
+            raise AssertionError(f"pose_only_shard {label} outside gates")
+        if not deform:
+            err["pose_only_shard"] = max(err["pose_only_shard"], d_w)
+
+        cp = pd.compact_pairs(pairs, P, valid)
+        seed = T_p
+
+        def joint_call():
+            return solve_shard.pose_deformation_sharded(
+                mesh, cam, seed, X, obs, valid, pairs, 1.0)
+
+        before = dict(pdc.shard_launches)
+        r_s = joint_call()
+        one_j = {k: v - before[k] for k, v in pdc.shard_launches.items()}
+        work = dict(zip(pdc.SHARD_WORK_FIELDS,
+                        pdc.shard_last_work.int().tolist()))
+        r_2 = joint_call()
+        same = (torch.equal(r_s.flows, r_2.flows)
+                and torch.equal(r_s.Tcw.q, r_2.Tcw.q)
+                and torch.equal(r_s.Tcw.t, r_2.Tcw.t))
+        T_k, f_k, _ = pdc.pose_deformation_cuda(cam, seed, X, obs, valid, cp,
+                                                1.0)
+        T_j, f_j, _ = pd.pose_deformation_plain(cam, seed, X, obs, valid, cp,
+                                                1.0)
+
+        def diffs(T, f):
+            return (max(quat_err(r_s.Tcw.q, T.q), float(torch.linalg.norm(
+                r_s.Tcw.t - T.t))), float(torch.max(torch.linalg.norm(
+                    r_s.flows - f, dim=-1)[valid])))
+
+        (dpw, dfw), (dpp, dfp) = diffs(T_k, f_k), diffs(T_j, f_j)
+        tp, tf, gate = SAME_DEVICE_POSE_TOL, SAME_DEVICE_FLOW_TOL, \
+            "same-device gates"
+        if deform:
+            sp, sf = joint_spread(cam, seed, X, obs, valid, cp, SPREAD_PERMS)
+            tp, tf = max(tp, 3 * sp), max(tf, 3 * sf)
+            gate = (f"3x the plain driver's spread under {SPREAD_PERMS} "
+                    f"permutations, pose {sp:.3e}, flow {sf:.3e}")
+            if (kind, P) == ("pinhole", 768):
+                spreads["joint"] = (sp, sf)
+        print(f"[kernel] pose_deformation_shard {label}: against the "
+              f"whole-solver kernel pose {dpw:.3e} max|dflow| {dfw:.3e}, "
+              f"against plain pose {dpp:.3e} max|dflow| {dfp:.3e} (tol pose "
+              f"{tp:.3e}, flow {tf:.3e}, {gate}); work {work}; phase "
+              f"launches {one_j}")
+        print(f"[determinism] pose_deformation_shard {label}: two calls "
+              f"bit-identical={same}")
+        if not (same and dpw < tp and dpp < tp and dfw < tf and dfp < tf
+                and one_j == pdc.shard_phase_launches()):
+            raise AssertionError(f"pose_deformation_shard {label} outside "
+                                 "gates")
+        if not deform:
+            err["pose_deformation_shard"] = max(
+                err["pose_deformation_shard"], dpw, dfw)
+
+        if (kind, P, deform) != ("pinhole", 768, 0.05):
+            continue
+        # Timed at the [kernel] records' problem (pinhole, P=768, deformed).
+        ms_po, ms_pd = cuda_ms(pose_call), cuda_ms(joint_call, 2, 10)
+        k_po, n_po = phase_kernel_ms(pose_call, ("partials_kernel",
+                                                 "step_kernel",
+                                                 "relevel_kernel"))
+        k_pd, n_pd = phase_kernel_ms(joint_call, ("init_kernel", "lin_kernel",
+                                                  "step_kernel", "hv_kernel",
+                                                  "cg_kernel"))
+        w_po = cuda_ms(lambda: poc.camera_pose_optimization_cuda(
+            cam, T0, X, obs, valid))
+        w_pd = cuda_ms(lambda: pdc.pose_deformation_cuda(
+            cam, seed, X, obs, valid, cp, 1.0))
+        p_po = whole["pose_only"]["plain_ms"]
+        p_pd = whole["pose_deformation"]["plain_ms"]
+        steps = int(poc.shard_last_steps.item())
+        flops = pose_only_flops(steps, int(valid.sum()))
+        n_b = nbytes(cam.params, T0.q, T0.t, X, obs, valid) + 7 * 4
+        rec["pose_only_shard"] = kernel_record(k_po, ms_po, p_po, flops, n_b,
+                                               {"lm_steps": steps})
+        E_live = int((cp.valid & valid[cp.i.long()]
+                      & valid[cp.j.long()]).sum())
+        jflops = joint_flops(work, P, E_live)
+        jb = (nbytes(cam.params, seed.q, seed.t, X, obs, valid, cp.i, cp.j,
+                     cp.w, cp.d0, cp.valid) + nbytes(r_s.flows)
+              + 4 * P + 7 * 4)
+        rec["pose_deformation_shard"] = kernel_record(k_pd, ms_pd, p_pd,
+                                                      jflops, jb, work)
+        for name, ms, k_ms, n_k, whole, plain in (
+                ("pose_only_shard", ms_po, k_po, n_po, w_po, p_po),
+                ("pose_deformation_shard", ms_pd, k_pd, n_pd, w_pd, p_pd)):
+            r = rec[name]
+            print(f"[kernel] {name} {label}: wrapper {ms:.4f} ms, its "
+                  f"{n_k} phase launches {k_ms:.4f} ms of device time "
+                  f"(torch.profiler), the whole-solver wrapper "
+                  f"{whole:.4f} ms, plain {plain:.4f} ms; bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}), phase "
+                  f"kernels / bound {k_ms / r['bound_ms']:.0f}")
+    for name in rec:
+        rec[name]["err"] = err[name]
+    torch.cuda.synchronize()
+    return rec, spreads
+
+
 def ba_kernel_phase(dev):
     """Kernel 3 vs the plain BA driver at the keyframe's shapes: the CPU
     tests' 1e-3 (tests/test_bundle_adjustment_pallas.py), then the
@@ -775,7 +1026,7 @@ def system_parity(dev):
 
 
 def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
-    """4 warm-up frames (the last two under sync_debug_mode="error"), then 25
+    """4 warm-up frames (the last two under sync_debug_mode="error"), then 10
     timed frames at the 1-in-5 keyframe cadence. Returns the launch counts
     of the timed run."""
     from nrslam_tpu_torch import bench_problem
@@ -800,7 +1051,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
         torch.cuda.set_sync_debug_mode(0)
 
     reset_launches()
-    n = 25
+    n = 10
     t0 = time.perf_counter()
     for i in range(n):
         s, res = system.frame_step(s, frames[i % len(frames)], mask, cam,
@@ -1379,21 +1630,28 @@ def _np(tree):
 PARALLEL_POINTS = (768, 4096)
 # Predicted before the first run on the card (PERF.md §6), printed beside the
 # readings; not gates. Bytes: each rank's collective payload bytes per
-# frame (non-keyframe, keyframe), counted on the CPU from the same shapes;
-# peak: each rank's and the single process's max_memory_allocated over
-# the frames at P = 4096, MB.
-PREDICTED = {768: {"bytes": (732_544, 787_712)},
-             4096: {"bytes": (3_897_472, 4_198_912),
-                    "rank_peak_mb": (200, 400), "single_peak_mb": (800, 1300)}}
+# frame (non-keyframe, keyframe), the sharded frame's gathers plus the
+# sharded solves' share (``solve_bytes``: their schedule's payloads,
+# tests/test_torch_parallel.py ``_solve_floats``); peak: each rank's and
+# the single process's max_memory_allocated over the frames at P = 4096,
+# MB.
+PREDICTED = {768: {"bytes": (2_937_696, 2_992_864),
+                   "solve_bytes": 2_205_152},
+             4096: {"bytes": (15_658_144, 15_959_584),
+                    "solve_bytes": 11_760_672,
+                    "rank_peak_mb": (490, 505),
+                    "single_peak_mb": (1245, 1260)}}
 
 
-def parallel_phase(dev, card: str):
-    """[parallel]: 4 ranks spawned on this one card (gloo over a FileStore,
+def parallel_phase(dev, card: str, spreads: dict, world, tmp: str):
+    """[parallel]: the 4 ranks of ``world`` (spawned on this one card at the
+    script's start: gloo over a FileStore in ``tmp``,
     ``parallel.dryrun.World``) run the pose normal equations sharded over
-    points, the keyframe-sharded BA and the row-sharded frame at P=768 and
-    P=4096; then the keyframe-sharded BA once more in this process on NCCL
-    with world size 1. Each is held to its single-process counterpart on
-    the card."""
+    points, the sharded pose-only and joint solves, the keyframe-sharded BA
+    and the row-sharded frame at P=768 and P=4096; then the
+    keyframe-sharded BA once more in this process on NCCL with world size
+    1. Each is held to its single-process counterpart on the card. Returns
+    rank 0's phase launches of the sharded solves over the frames."""
     import torch.distributed as dist
 
     from nrslam_tpu_torch import bench_problem
@@ -1401,81 +1659,118 @@ def parallel_phase(dev, card: str):
     from nrslam_tpu_torch.solver import bundle_adjustment as ba
     from nrslam_tpu_torch.solver import pose_only
 
-    n = 4
-    with scratch_dir() as tmp:
-        t0 = time.perf_counter()
-        world = dryrun.World(n, str(dev), store_dir=tmp)
-        try:
-            # The pose normal equations, P=768, against one einsum.
-            cam, T0, X, obs, valid, _ = bench_problem.solver_problem(
-                device=dev, with_pairs=False)
-            w = valid.to(torch.float32)
-            outs = world.run("pose_system", _np(cam), _np(T0.q), _np(T0.t),
-                             _np(X), _np(obs), _np(w))
-            print(f"[parallel] {n} gloo ranks on {card} up and answering "
-                  f"in {time.perf_counter() - t0:.2f} s")
-            H_ref, g_ref, _, _ = pose_only._pose_system(cam, T0, X, obs, w)
-            H_ref, g_ref = H_ref.cpu().numpy(), g_ref.cpu().numpy()
-            H, g, _ = outs[0]
-            scale = float(abs(H_ref).max())
-            dH, dg = float(abs(H - H_ref).max()), float(abs(g - g_ref).max())
-            print(f"[parallel] pose system P={X.shape[0]} over {n} ranks: "
-                  f"max|dH| {dH:.3e} (gate 1e-5 x {scale:.3e}), max|dg| "
-                  f"{dg:.3e}")
-            if not (dH <= 1e-5 * scale
-                    and dg <= 1e-5 * max(1.0, float(abs(g_ref).max()))):
-                raise AssertionError("parallel: pose system outside gates")
+    n = world.n
+    t0 = time.perf_counter()
+    # The pose normal equations, P=768, against one einsum.
+    cam, T0, X, obs, valid, _ = bench_problem.solver_problem(
+        device=dev, with_pairs=False)
+    w = valid.to(torch.float32)
+    outs = world.run("pose_system", _np(cam), _np(T0.q), _np(T0.t),
+                     _np(X), _np(obs), _np(w))
+    print(f"[parallel] {n} gloo ranks on {card} answering the first task "
+          f"in {time.perf_counter() - t0:.2f} s")
+    H_ref, g_ref, _, _ = pose_only._pose_system(cam, T0, X, obs, w)
+    H_ref, g_ref = H_ref.cpu().numpy(), g_ref.cpu().numpy()
+    H, g, _ = outs[0]
+    scale = float(abs(H_ref).max())
+    dH, dg = float(abs(H - H_ref).max()), float(abs(g - g_ref).max())
+    print(f"[parallel] pose system P={X.shape[0]} over {n} ranks: "
+          f"max|dH| {dH:.3e} (gate 1e-5 x {scale:.3e}), max|dg| "
+          f"{dg:.3e}")
+    if not (dH <= 1e-5 * scale
+            and dg <= 1e-5 * max(1.0, float(abs(g_ref).max()))):
+        raise AssertionError("parallel: pose system outside gates")
 
-            # The keyframe-sharded BA at the ring's size.
-            for n_valid in (8, 5):
-                cam_b, poses0, L0, prob = bench_problem.ba_problem(
-                    n_valid=n_valid, device=dev, K=8, P=768)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob,
-                                                     5, 32)
-                torch.cuda.synchronize()
-                print(f"[parallel] plain single-process BA {n_valid}/8 "
-                      f"valid: {1e3 * (time.perf_counter() - t1):.2f} ms")
-                outs = world.run("kf_sharded_ba", _np(cam_b), _np(poses0),
-                                 _np(L0), _np(prob), 5, 32)
-                dryrun.report_ba(
-                    "[parallel]", f"kf-sharded BA {n_valid}/8 valid",
-                    dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob,
-                                            plain), n, L0, prob)
+    # The sharded pose-only and joint solves alone at P=768 against
+    # the whole-solver kernels in this process.
+    # on the rigid scene under the same-device gates, on the deformed one
+    # under 3x the plain drivers' spreads that [kernel] measured.
+    for deform in (0.0, 0.05):
+        tp, tf = SAME_DEVICE_POSE_TOL, SAME_DEVICE_FLOW_TOL
+        if deform:
+            tp = max(tp, 3 * spreads["pose"], 3 * spreads["joint"][0])
+            tf = max(tf, 3 * spreads["joint"][1])
+        dryrun.report_solves("[parallel]", dryrun.solves_against_whole(
+            world, dev, deform), n, tp, tf)
 
-            # The row-sharded frame against the single-process frame: each
-            # rank builds the seeded problem with its own graph rows. The
-            # ranks share the card: a measurement, no speed-up expected.
-            for P, kfs in zip(PARALLEL_POINTS,
-                              ([False] * 4 + [True, False],
-                               [False, False, True])):
-                r = dryrun.frames_against_single(world, dev, P, kfs,
-                                                 gather_graph=P <= 768)
-                dryrun.report_frames("[parallel]", card, r, P, kfs,
-                                     PREDICTED.get(P))
-        finally:
-            world.close()
-
-        # NCCL, world size 1, in this process.
+    # The keyframe-sharded BA at the ring's size.
+    for n_valid in (8, 5):
         cam_b, poses0, L0, prob = bench_problem.ba_problem(
-            n_valid=8, device=dev, K=8, P=768)
-        plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob, 5, 32)
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
-            rank=0, world_size=1)
-        try:
-            mesh = sharding.make_mesh(dev)
-            assert mesh.group is not None and mesh.world_size == 1
-            outs = [dryrun.TASKS["kf_sharded_ba"](
-                mesh, _np(cam_b), _np(poses0), _np(L0), _np(prob), 5, 32)]
-            dryrun.report_ba(
-                "[parallel]",
-                f"kf-sharded BA on {dist.get_backend()} world size 1",
-                dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob, plain),
-                1, L0, prob)
-        finally:
-            dist.destroy_process_group()
+            n_valid=n_valid, device=dev, K=8, P=768)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob,
+                                             5, 32)
+        torch.cuda.synchronize()
+        print(f"[parallel] plain single-process BA {n_valid}/8 "
+              f"valid: {1e3 * (time.perf_counter() - t1):.2f} ms")
+        outs = world.run("kf_sharded_ba", _np(cam_b), _np(poses0),
+                         _np(L0), _np(prob), 5, 32)
+        dryrun.report_ba(
+            "[parallel]", f"kf-sharded BA {n_valid}/8 valid",
+            dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob,
+                                    plain), n, L0, prob)
+
+    # The row-sharded frame against the single-process frame: each
+    # rank builds the seeded problem with its own graph rows. The
+    # ranks share the card: a measurement, no speed-up expected.
+    launches = {"pose_only_shard": 0, "pose_deformation_shard": 0}
+    for P, kfs in zip(PARALLEL_POINTS,
+                      ([False] * 4 + [True, False],
+                       [False, False, True])):
+        r = dryrun.frames_against_single(world, dev, P, kfs,
+                                         gather_graph=P <= 768)
+        dryrun.report_frames("[parallel]", card, r, P, kfs,
+                             PREDICTED.get(P))
+        for k, v in r["launches"][0].items():
+            route = k.split(".")[0]
+            if route in launches and not k.endswith(".calls"):
+                launches[route] += v
+
+    # NCCL, world size 1, in this process.
+    cam_b, poses0, L0, prob = bench_problem.ba_problem(
+        n_valid=8, device=dev, K=8, P=768)
+    plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob, 5, 32)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(dev)
+        assert mesh.group is not None and mesh.world_size == 1
+        outs = [dryrun.TASKS["kf_sharded_ba"](
+            mesh, _np(cam_b), _np(poses0), _np(L0), _np(prob), 5, 32)]
+        dryrun.report_ba(
+            "[parallel]",
+            f"kf-sharded BA on {dist.get_backend()} world size 1",
+            dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob, plain),
+            1, L0, prob)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def run_phases(phase, dev, card: str, world, tmp: str):
+    """Every phase of the default run, in order; returns (the kernels'
+    records, their launches on the paths that drive them)."""
+    rec = phase("kernels", kernel_phase, dev)
+    shard_rec, spreads = phase("sharded kernels", shard_kernel_phase, dev,
+                               rec)
+    rec.update(shard_rec)
+    phase("shared-memory overflow", overflow_phase, dev)
+    phase("slice parity", slice_parity, dev)
+    phase("system parity", system_parity, dev)
+    phase("slice 320x240", slice_at_scale, dev, card, 384, 240, 320, 128)
+    phase("slice 640x480", slice_at_scale, dev, card, 768, 480, 640, 256)
+    launches, refine_inputs = phase("system 640x480", system_at_scale, dev,
+                                    card)
+    phase("pose-only at the init refine", refine_kernel_check, refine_inputs,
+          rec)
+    phase("disk-hamlyn", disk_hamlyn, dev, card)
+    phase("disk-simulation", disk_simulation, dev, card)
+    phase("collapse", collapse_phase, dev, card)
+    launches.update(phase("parallel", parallel_phase, dev, card, spreads,
+                          world, tmp))
+    return rec, launches
 
 
 def main():
@@ -1524,20 +1819,16 @@ def main():
     if wrappers:
         phase("wrappers", time_wrappers, dev, card)
         return
-    rec = phase("kernels", kernel_phase, dev)
-    phase("shared-memory overflow", overflow_phase, dev)
-    phase("slice parity", slice_parity, dev)
-    phase("system parity", system_parity, dev)
-    phase("slice 320x240", slice_at_scale, dev, card, 384, 240, 320, 128)
-    phase("slice 640x480", slice_at_scale, dev, card, 768, 480, 640, 256)
-    launches, refine_inputs = phase("system 640x480", system_at_scale, dev,
-                                    card)
-    phase("pose-only at the init refine", refine_kernel_check, refine_inputs,
-          rec)
-    phase("disk-hamlyn", disk_hamlyn, dev, card)
-    phase("disk-simulation", disk_simulation, dev, card)
-    phase("collapse", collapse_phase, dev, card)
-    phase("parallel", parallel_phase, dev, card)
+    # The [parallel] ranks start now and wait, so their start-up overlaps
+    # the phases before theirs; they are stopped however the script ends.
+    from nrslam_tpu_torch.parallel import dryrun
+    tmp = scratch_dir()
+    world = dryrun.World(4, str(dev), store_dir=tmp.name)
+    try:
+        rec, launches = run_phases(phase, dev, card, world, tmp.name)
+    finally:
+        world.close()
+        tmp.cleanup()
     print(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
 
     sources = {
@@ -1547,6 +1838,11 @@ def main():
                              "nrslam_tpu/solver/pose_deformation_pallas.py:81"),
         "bundle_adjustment": ("nrslam_tpu_torch/csrc/bundle_adjustment.cu",
                               "nrslam_tpu/solver/bundle_adjustment_pallas.py:66"),
+        "pose_only_shard": ("nrslam_tpu_torch/csrc/pose_only_shard.cu",
+                            "nrslam_tpu/solver/pose_only_pallas.py:40"),
+        "pose_deformation_shard": (
+            "nrslam_tpu_torch/csrc/pose_deformation_shard.cu",
+            "nrslam_tpu/solver/pose_deformation_pallas.py:81"),
     }
     kernels_json = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

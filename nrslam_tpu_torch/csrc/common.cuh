@@ -1,11 +1,12 @@
-// Shared scalar device math for the whole-solver LM kernels.
+// Shared scalar device math for the LM kernels (whole-solver and sharded).
 //
 // Port of nrslam_tpu/solver/pallas_common.py: quaternion / SE(3) algebra,
 // the 3x3 adjugate inverse, the damped 6x6 block-Schur solve and inverse,
 // and pinhole / Kannala-Brandt-8 projection with its analytic 2x3 Jacobian.
 // Everything is float32 with the same formulas (and operation order where it
 // matters) as the Pallas kernels, so results match the plain PyTorch drivers
-// to float tolerance. Also holds the pose-only kernel's block reduction.
+// to float tolerance. Also holds the unary reprojection edges of the
+// pose-only kernels and the reductions of a warp and a block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -264,6 +265,66 @@ __device__ inline float huber_w(float chi2, float th) {
 
 __device__ inline float huber_rho(float chi2, float th) {
   return chi2 <= th ? chi2 : 2.0f * sqrtf(th) * sqrtf(fmaxf(chi2, 1e-20f)) - th;
+}
+
+// ---------------------------------------------------------------------------
+// Unary reprojection edges of the pose-only solves (pose_only.cu,
+// pose_only_shard.cu): Huber delta^2 = 5.99
+// ---------------------------------------------------------------------------
+
+constexpr float kPoseTh2Dof = 5.99f;
+
+__device__ __forceinline__ void to_camera(const float R[9], const float t[3],
+                                          float x, float y, float z,
+                                          float c[3]) {
+  c[0] = R[0] * x + R[1] * y + R[2] * z + t[0];
+  c[1] = R[3] * x + R[4] * y + R[5] * z + t[1];
+  c[2] = R[6] * x + R[7] * y + R[8] * z + t[2];
+}
+
+// Adds one point's normal-equation terms at pose (R, t) to acc when `on`;
+// otherwise every sum keeps its value (a select: no term of a masked point,
+// not even an inf or NaN one, reaches a sum). Branch-free, so the compiler
+// can interleave a thread's points.
+template <int Kind>
+__device__ __forceinline__ void add_point(const float cam[8], const float R[9],
+                                          const float t[3], float x, float y,
+                                          float z, float u, float v, bool on,
+                                          float (&acc)[32]) {
+  float c[3], pu, pv, J[6], Ju[6], Jv[6];
+  to_camera(R, t, x, y, z, c);
+  project_with_jacobian<Kind>(cam, c[0], c[1], c[2], &pu, &pv, J);
+  const float eu = u - pu, ev = v - pv;
+  const float chi2 = eu * eu + ev * ev;
+  const float w = huber_w(chi2, kPoseTh2Dof);
+  pose_jacobian(J, c[0], c[1], c[2], Ju, Jv);
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int b = a; b < 6; ++b, ++k) {
+      const float s = acc[k] + w * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
+      acc[k] = on ? s : acc[k];
+    }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    const float s = acc[21 + a] + w * (Ju[a] * eu + Jv[a] * ev);
+    acc[21 + a] = on ? s : acc[21 + a];
+  }
+  const float s = acc[27] + huber_rho(chi2, kPoseTh2Dof);
+  acc[27] = on ? s : acc[27];
+}
+
+// Whether a point's chi2 at pose (R, t) is <= 5.99.
+template <int Kind>
+__device__ __forceinline__ bool inlier(const float cam[8], const float R[9],
+                                       const float t[3], float x, float y,
+                                       float z, float u, float v) {
+  float c[3], pu, pv, J[6];
+  to_camera(R, t, x, y, z, c);
+  project_with_jacobian<Kind>(cam, c[0], c[1], c[2], &pu, &pv, J);
+  const float eu = u - pu, ev = v - pv;
+  return eu * eu + ev * ev <= kPoseTh2Dof;
 }
 
 // ---------------------------------------------------------------------------

@@ -56,7 +56,6 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kRegPts = 4;  // points a thread keeps in registers
 constexpr int kSums = 28;  // 21 upper H, 6 g, 1 robust chi2
-constexpr float kTh2Dof = 5.99f;
 constexpr unsigned kValid = 1, kLevel = 2;  // state byte of a shared / global point
 static_assert(kMaxThreads % 32 == 0 && kMaxThreads <= 1024, "block size");
 static_assert(kRegPts >= 1 && kRegPts <= 16, "state bits of register points");
@@ -86,47 +85,6 @@ struct SharedPoints {
   unsigned char* state;
 };
 
-__device__ __forceinline__ void to_camera(const float R[9], const float t[3],
-                                          float x, float y, float z,
-                                          float c[3]) {
-  c[0] = R[0] * x + R[1] * y + R[2] * z + t[0];
-  c[1] = R[3] * x + R[4] * y + R[5] * z + t[1];
-  c[2] = R[6] * x + R[7] * y + R[8] * z + t[2];
-}
-
-// Adds one point's normal-equation terms at pose (R, t) to acc when `on`;
-// otherwise every sum keeps its value (a select: no term of a masked point,
-// not even an inf or NaN one, reaches a sum). Branch-free, so the compiler
-// can interleave a thread's points.
-template <int Kind>
-__device__ __forceinline__ void add_point(const float cam[8], const float R[9],
-                                          const float t[3], float x, float y,
-                                          float z, float u, float v, bool on,
-                                          float (&acc)[32]) {
-  float c[3], pu, pv, J[6], Ju[6], Jv[6];
-  to_camera(R, t, x, y, z, c);
-  project_with_jacobian<Kind>(cam, c[0], c[1], c[2], &pu, &pv, J);
-  const float eu = u - pu, ev = v - pv;
-  const float chi2 = eu * eu + ev * ev;
-  const float w = huber_w(chi2, kTh2Dof);
-  pose_jacobian(J, c[0], c[1], c[2], Ju, Jv);
-  int k = 0;
-#pragma unroll
-  for (int a = 0; a < 6; ++a)
-#pragma unroll
-    for (int b = a; b < 6; ++b, ++k) {
-      const float s = acc[k] + w * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
-      acc[k] = on ? s : acc[k];
-    }
-#pragma unroll
-  for (int a = 0; a < 6; ++a) {
-    const float s = acc[21 + a] + w * (Ju[a] * eu + Jv[a] * ev);
-    acc[21 + a] = on ? s : acc[21 + a];
-  }
-  const float s = acc[27] + huber_rho(chi2, kTh2Dof);
-  acc[27] = on ? s : acc[27];
-}
-
 // The register points of the first N slots, in straight-line code (N the
 // slots any thread of the block uses, so no slot is run for nothing).
 template <int Kind, int N>
@@ -143,18 +101,6 @@ __device__ __forceinline__ void add_reg_points(int n_slots, const float cam[8],
   } else if constexpr (N > 1) {
     add_reg_points<Kind, N - 1>(n_slots, cam, R, t, rp, acc);
   }
-}
-
-// Whether a point's chi2 at pose (R, t) is <= 5.99.
-template <int Kind>
-__device__ __forceinline__ bool inlier(const float cam[8], const float R[9],
-                                       const float t[3], float x, float y,
-                                       float z, float u, float v) {
-  float c[3], pu, pv, J[6];
-  to_camera(R, t, x, y, z, c);
-  project_with_jacobian<Kind>(cam, c[0], c[1], c[2], &pu, &pv, J);
-  const float eu = u - pu, ev = v - pv;
-  return eu * eu + ev * ev <= kTh2Dof;
 }
 
 // This thread's partial sums over its points at the current level.

@@ -50,6 +50,14 @@ _SIGNATURES = {
     "nrslam_ba": (_I, [_P] * 17 + [_I] * 7 + [_P]),
     "nrslam_ba_scratch": (ctypes.c_long, [_I, _I, _I]),
     "nrslam_ba_blocks": (_I, []),
+    "nrslam_pose_shard_layout": (_I, [_P]),
+    "nrslam_pose_shard_partials": (_I, [_P, _P, _I, _P, _P, _P] + [_I] * 5
+                                   + [_P, _P]),
+    "nrslam_pose_shard_step": (_I, [_P, _P, _I, _I, _P]),
+    "nrslam_pose_shard_relevel": (_I, [_P] * 6 + [_I, _I, _P]),
+    "nrslam_joint_shard_layout": (_I, [_I] * 4 + [_P]),
+    "nrslam_joint_shard": (_I, [_I, _I, _P, _I] + [_P] * 14 + [_I] * 6
+                           + [_P]),
 }
 
 

@@ -20,6 +20,7 @@ sharded pose normal equations and the keyframe-sharded BA at K = n.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import statistics
@@ -35,7 +36,8 @@ import torch.multiprocessing as mp
 
 from nrslam_tpu_torch import bench_problem, convert
 from nrslam_tpu_torch.geometry import cameras, se3
-from nrslam_tpu_torch.parallel import ba_shard, multihost, sharding
+from nrslam_tpu_torch.parallel import (ba_shard, multihost, sharding,
+                                       solve_shard)
 from nrslam_tpu_torch.parallel.tracking_shard import frame_step_sharded
 from nrslam_tpu_torch.utils.device import resolve
 from nrslam_tpu_torch.utils.tree import tree_map
@@ -64,13 +66,39 @@ def _sync(device):
 
 
 def _launch_counts():
+    """The kernel wrappers' launch counts: the whole-solver kernels by
+    name, the sharded routes' calls and phase launches as ``route.phase``."""
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
-    return {"pose_only": pose_only_cuda.launches,
-            "pose_deformation": pdc.launches,
-            "bundle_adjustment": bac.launches}
+    out = {"pose_only": pose_only_cuda.launches,
+           "pose_deformation": pdc.launches,
+           "bundle_adjustment": bac.launches}
+    for route, mod in (("pose_only_shard", pose_only_cuda),
+                       ("pose_deformation_shard", pdc)):
+        out[f"{route}.calls"] = mod.shard_calls
+        out.update({f"{route}.{k}": v for k, v in mod.shard_launches.items()})
+    return out
+
+
+def frame_launches(keyframes) -> dict:
+    """``_launch_counts`` that ``len(keyframes)`` sharded frames make on
+    each rank: one sharded pose-only and one sharded joint call a frame
+    with their phase launches, no whole-solver pose-only or joint launch,
+    the BA kernel once a keyframe."""
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    n = len(keyframes)
+    want = {"pose_only": 0, "pose_deformation": 0,
+            "bundle_adjustment": sum(map(bool, keyframes)),
+            "pose_only_shard.calls": n, "pose_deformation_shard.calls": n}
+    for route, mod in (("pose_only_shard", pose_only_cuda),
+                       ("pose_deformation_shard", pdc)):
+        want.update({f"{route}.{k}": n * v
+                     for k, v in mod.shard_phase_launches().items()})
+    return want
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +115,33 @@ def pose_system(mesh, cam, q, t, X, obs, w):
     H, g, chi2 = sharding.pose_system_sharded(mesh, cam)(
         *to_device((q, t), mesh.device), X, obs, w)
     return convert.to_numpy((H, g, chi2))
+
+
+@task
+def sharded_solves(mesh, cam, T0, X, obs, valid, pairs, scale):
+    """The pose-only and joint solves partitioned over the ranks
+    (``solve_shard``) on the rank's block of whole numpy inputs: the
+    pose-only solve from ``T0``, then the joint from its pose. Returns
+    (pose-only SE3, the joint's PoseDeformationResult, the collectives'
+    count and bytes, the phase-kernel launches, (pose-only ms, joint
+    ms))."""
+    cam, T0, X, obs, valid, pairs = to_device(
+        (cam, T0, X, obs, valid, pairs), mesh.device)
+    solves = solve_shard.mesh_solves(mesh)
+    before = _launch_counts()
+    _sync(mesh.device)
+    sharding.traffic.reset()
+    t0 = time.perf_counter()
+    T = solves.pose_only(cam, T0, X, obs, valid)
+    _sync(mesh.device)
+    t1 = time.perf_counter()
+    res = solves.joint(cam, T, X, obs, valid, pairs, scale)
+    _sync(mesh.device)
+    ms = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    return (convert.to_numpy((T, res)) + (sharding.traffic.count,
+                                          sharding.traffic.bytes, launches,
+                                          ms))
 
 
 @task
@@ -125,11 +180,13 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
         resident = torch.cuda.memory_allocated(mesh.device)
     before = _launch_counts()
     out = {k: [] for k in ("n_tracked_3d", "lost", "ms", "bytes",
-                           "payloads", "max_payload", "graph_shapes")}
+                           "payloads", "max_payload", "graph_shapes",
+                           "solve_bytes", "solve_payloads")}
     for frame, kf in zip(frames, keyframes):
         gray = multihost.replicate_frame(mesh, frame)
         _sync(mesh.device)
         sharding.traffic.reset()
+        solve_shard.traffic.reset()
         t0 = time.perf_counter()
         local, res = frame_step_sharded(mesh, local, gray, mask, cam, config,
                                         bool(kf))
@@ -138,6 +195,8 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
         out["bytes"].append(sharding.traffic.bytes)
         out["payloads"].append(sharding.traffic.count)
         out["max_payload"].append(sharding.traffic.max_elements)
+        out["solve_bytes"].append(solve_shard.traffic.bytes)
+        out["solve_payloads"].append(solve_shard.traffic.count)
         out["graph_shapes"].append(sorted({tuple(x.shape)
                                            for x in local.graph[:-1]}))
         out["n_tracked_3d"].append(int(res.n_tracked_3d))
@@ -319,26 +378,81 @@ def dryrun(mesh):
 # Sharded runs held to one process (chip_smoke.py [parallel], multicard)
 # ---------------------------------------------------------------------------
 
+def solves_against_whole(world, device, deform: float) -> dict:
+    """``sharded_solves`` on the world's ranks on the pinhole P=768 solver
+    problem (``bench_problem.solver_problem``, deformation ``deform``)
+    against the whole-solver kernels in this process: the largest pose
+    difference (pose-only and joint), the largest per-point flow difference
+    over valid points, whether every rank holds the same bits, rank 0's
+    collectives, bytes, launches and ms of each solve beside the
+    whole-solver kernels' (host clock, synchronised)."""
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    device = torch.device(device)
+    cam, T0, X, obs, valid, pairs = bench_problem.solver_problem(
+        device=device, deform_amp=deform)
+    outs = world.run("sharded_solves", *convert.to_numpy(
+        (cam, T0, X, obs, valid, pairs)), 1.0)
+    _sync(device)
+    t0 = time.perf_counter()
+    T_w = pose_only_cuda.camera_pose_optimization_cuda(cam, T0, X, obs,
+                                                       valid)
+    _sync(device)
+    t1 = time.perf_counter()
+    r_w = pd.pose_deformation_optimization(cam, T_w, X, obs, valid, pairs,
+                                           1.0)
+    _sync(device)
+    ms_w = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+    T, r, count, nb, launches, ms = outs[0]
+
+    def d_pose(a, b):
+        q, q_ref = a.q, b.q.cpu().numpy()
+        return max(min(float(np.linalg.norm(q - q_ref)),
+                       float(np.linalg.norm(q + q_ref))),
+                   float(np.linalg.norm(a.t - b.t.cpu().numpy())))
+
+    return {"d_pose": max(d_pose(T, T_w), d_pose(r.Tcw, r_w.Tcw)),
+            "d_flow": float(np.max(np.linalg.norm(
+                r.flows - r_w.flows.cpu().numpy(), axis=-1)[
+                    valid.cpu().numpy()])),
+            "same": all(np.array_equal(o[1].flows, r.flows)
+                        and np.array_equal(o[0].t, T.t) for o in outs),
+            "count": count, "bytes": nb, "launches": launches, "ms": ms,
+            "whole_ms": ms_w, "P": X.shape[0], "deform": deform}
+
+
+def report_solves(tag: str, r: dict, n: int, tol_pose: float,
+                  tol_flow: float):
+    """Prints ``solves_against_whole``'s readings ``r`` for n ranks as a
+    ``tag`` line, and raises AssertionError unless every rank holds the
+    same bits and the differences are below the tolerances."""
+    label = "rigid" if r["deform"] == 0 else "deformed"
+    print(f"{tag} sharded pose-only + joint pinhole P={r['P']} {label} over "
+          f"{n} ranks against the whole-solver kernels: pose "
+          f"{r['d_pose']:.3e} (tol {tol_pose:.3e}) max|dflow| "
+          f"{r['d_flow']:.3e} (tol {tol_flow:.3e}); every rank the same "
+          f"bits: {r['same']}; rank 0: {r['count']} collectives, "
+          f"{r['bytes']} bytes, pose-only {r['ms'][0]:.2f} ms, joint "
+          f"{r['ms'][1]:.2f} ms (the whole-solver kernels in this process "
+          f"{r['whole_ms'][0]:.2f} / {r['whole_ms'][1]:.2f} ms); launches "
+          f"{r['launches']}")
+    if not (r["same"] and r["d_pose"] < tol_pose and r["d_flow"] < tol_flow):
+        raise AssertionError(f"{tag} sharded solves {label} outside the "
+                             "gates")
+
+
 # The JAX tests' gates of a sharded frame against one process.
 FRAME_GATES = {"dt": 1e-4, "dpos": 1e-3, "agree": 0.98, "dgraph": 1e-3}
 
 
-def frames_against_single(world, device, max_points: int, keyframes,
-                          gather_graph: bool) -> dict:
-    """``bench_frames`` on the world's ranks against ``system.frame_step``
-    on the same seeded problem in this process on ``device``. Returns the
-    readings (n_tracked_3d, |dTcw.t|, max|dpos|, the share of equal
-    statuses, with ``gather_graph`` the largest graph difference, launches
-    per rank, ms per frame, collective bytes per frame, peak allocated
-    bytes per rank and of the single process) and ``ok``: every gate of
-    ``FRAME_GATES``, n_tracked_3d equal, launches as the frames dictate
-    (pose-only and joint once a frame, BA once a keyframe) on every rank,
-    equal collective bytes on every rank and no payload of ``P * P / n``
-    elements or more."""
+def _single_frames(device, max_points: int, keyframes):
+    """``system.frame_step`` on the seeded problem in this process: (final
+    state, n_tracked_3d per frame, ms per frame, on the card (peak
+    allocated bytes over the frames, allocated bytes with the problem
+    built) else (None, None))."""
     from nrslam_tpu_torch.slam import system
 
-    device = torch.device(device)
-    outs = world.run("bench_frames", max_points, keyframes, gather_graph)
     s, frames, mask, cam, config = bench_problem.build_bench_problem(
         max_points, device=device)
     cuda = device.type == "cuda"
@@ -354,27 +468,95 @@ def frames_against_single(world, device, max_points: int, keyframes,
         _sync(device)
         ms.append(1e3 * (time.perf_counter() - t0))
         n3d.append(int(res.n_tracked_3d))
+    memory = ((torch.cuda.max_memory_allocated(device), resident) if cuda
+              else (None, None))
+    return s, n3d, ms, memory
+
+
+@contextlib.contextmanager
+def _plain_solves():
+    """The pose-only and joint solves of this process's frames run by their
+    plain drivers (on the card too) instead of the whole-solver kernels;
+    the BA keeps its kernel."""
+    from nrslam_tpu_torch.solver import pose_deformation as pd
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
+
+    swaps = ((pose_only_cuda, "camera_pose_optimization_cuda",
+              pose_only.camera_pose_optimization_plain),
+             (pdc, "pose_deformation_cuda", pd.pose_deformation_plain))
+    saved = [getattr(m, name) for m, name, _ in swaps]
+    for m, name, plain in swaps:
+        setattr(m, name, plain)
+    try:
+        yield
+    finally:
+        for (m, name, _), fn in zip(swaps, saved):
+            setattr(m, name, fn)
+
+
+def _differences(got, ref) -> dict:
+    """FRAME_GATES' readings of the gathered state ``got`` (numpy) against
+    the state ``ref``, and the points whose positions differ by > 1e-3."""
+    pos = ref.positions.cpu().numpy()
+    return {"dt": float(abs(got.Tcw.t - ref.Tcw.t.cpu().numpy()).max()),
+            "dpos": float(abs(got.positions - pos).max()),
+            "agree": float(np.mean(got.status == ref.status.cpu().numpy())),
+            "moved": int(np.sum(np.linalg.norm(got.positions - pos, axis=-1)
+                                > 1e-3))}
+
+
+def frames_against_single(world, device, max_points: int, keyframes,
+                          gather_graph: bool) -> dict:
+    """``bench_frames`` on the world's ranks against one process on the
+    same seeded problem on ``device``: ``system.frame_step`` with the
+    pose-only and joint solves by the plain drivers (every kernel's oracle;
+    the gates), with the whole-solver kernels (``system.frame_step`` as it
+    runs; readings), and ``frame_step_sharded`` as one rank (bit for bit).
+    Returns the readings (n_tracked_3d, |dTcw.t|, max|dpos|, the share of
+    equal statuses and the points moved by > 1e-3 against each, with
+    ``gather_graph`` the largest graph difference, launches per rank, ms
+    per frame, collective bytes per frame and the sharded solves' share of
+    them, peak allocated bytes per rank and of the single process with the
+    kernels) and ``ok``: against the plain drivers every gate of
+    ``FRAME_GATES`` and n_tracked_3d equal; launches as the frames dictate
+    (``frame_launches``: the sharded pose-only and joint phase kernels once
+    a frame, no whole-solver pose-only or joint kernel, BA once a keyframe)
+    on every rank, equal collective bytes on every rank, no payload of ``P
+    * P / n`` elements or more, and the ranks' frames bit for bit those of
+    the one-rank run (``_against_one_process``). The partitioned solves sum
+    in another order than one process, so against it the gates are
+    tolerances, not bit equality; a point whose chi2 or flow sits at a
+    gate's threshold can flip between any two summation orders (PERF.md
+    §6: at P=4096 the whole-solver frame flips one point against the
+    plain drivers, which the sharded frame matches)."""
+    device = torch.device(device)
+    outs = world.run("bench_frames", max_points, keyframes, gather_graph)
+    whole, whole_n3d, ms, (peak, resident) = _single_frames(
+        device, max_points, keyframes)
+    with _plain_solves():
+        s, n3d, _, _ = _single_frames(device, max_points, keyframes)
+    same = _against_one_process(outs[0], device, max_points, keyframes)
     got = outs[0]["state"]
     r = {"n_tracked_3d": outs[0]["n_tracked_3d"], "single_n_tracked_3d": n3d,
-         "dt": float(abs(got.Tcw.t - s.Tcw.t.cpu().numpy()).max()),
-         "dpos": float(abs(got.positions
-                           - s.positions.cpu().numpy()).max()),
-         "agree": float(np.mean(got.status == s.status.cpu().numpy())),
+         "whole_n_tracked_3d": whole_n3d, "same_as_one_process": same,
+         **_differences(got, s),
+         "whole": _differences(got, whole),
          "launches": [o["launches"] for o in outs],
          "ms": outs[0]["ms"], "single_ms": ms,
          "bytes": [o["bytes"] for o in outs],
          "payloads": outs[0]["payloads"],
+         "solve_bytes": outs[0]["solve_bytes"],
+         "solve_payloads": outs[0]["solve_payloads"],
          "max_payload": max(max(o["max_payload"]) for o in outs),
          "graph_shapes": outs[0]["graph_shapes"],
          "peak_bytes": [o["peak_bytes"] for o in outs],
          "resident_bytes": [o["resident_bytes"] for o in outs],
-         "single_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                               if cuda else None),
-         "single_resident_bytes": resident if cuda else None}
-    want = {"pose_only": len(keyframes), "pose_deformation": len(keyframes),
-            "bundle_adjustment": sum(map(bool, keyframes))}
+         "single_peak_bytes": peak, "single_resident_bytes": resident}
+    want = frame_launches(keyframes)
+    r["want_launches"] = want
     g = FRAME_GATES
-    r["ok"] = (r["n_tracked_3d"] == n3d and r["dt"] <= g["dt"]
+    r["ok"] = (same and r["n_tracked_3d"] == n3d and r["dt"] <= g["dt"]
                and r["dpos"] <= g["dpos"] and r["agree"] >= g["agree"]
                and all(x == want for x in r["launches"])
                and all(b == r["bytes"][0] for b in r["bytes"])
@@ -390,6 +572,35 @@ def frames_against_single(world, device, max_points: int, keyframes,
                                     "min_distance", "weight"))
         r["ok"] = r["ok"] and equal and r["dgraph"] <= g["dgraph"]
     return r
+
+
+def _against_one_process(out, device, max_points: int, keyframes) -> bool:
+    """Whether the ranks' record ``out`` (rank 0's ``_run_frames``) equals,
+    bit for bit, ``frame_step_sharded`` run on the same problem in this
+    process as a world of one rank (no process group): the same
+    n_tracked_3d and LOST flags, and every leaf of the final state that
+    ``out`` holds. The partitioned solves sum by chunk of points, so the
+    number of ranks does not change a bit."""
+    s, frames, mask, cam, config = bench_problem.build_bench_problem(
+        max_points, device=device)
+    mesh = sharding.Mesh(0, 1, None, s.positions.device)
+    n3d, lost = [], []
+    for f, kf in zip(frames, keyframes):
+        s, res = frame_step_sharded(mesh, s, f, mask, cam, config, bool(kf))
+        n3d.append(int(res.n_tracked_3d))
+        lost.append(bool(res.lost))
+    got = out["state"]
+    mine = convert.to_numpy(s._replace(refs=None))
+    if got.graph is None:
+        mine = mine._replace(graph=None)
+    leaves = []
+
+    def pair(a, b):
+        leaves.append(np.array_equal(a, b))
+        return a
+
+    tree_map(pair, got, mine)
+    return n3d == out["n_tracked_3d"] and lost == out["lost"] and all(leaves)
 
 
 def ba_against_plain(outs, cam, poses0, L0, prob, plain) -> dict:
@@ -478,18 +689,30 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
     graph = (f", graph gathered once at the end: edges and bad flags "
              f"equal, max|d| distances and weights {r['dgraph']:.2e} (gate "
              f"1e-3)" if "dgraph" in r else "")
+    w = r["whole"]
     print(f"{tag} sharded frame 640x480 P={P}/256 on {card}, "
           f"{len(keyframes)} frames (keyframe at frame {kf_at}) over {n} "
-          f"ranks: n_tracked_3d {r['n_tracked_3d']} (single process "
+          f"ranks, against one process with the plain drivers: "
+          f"n_tracked_3d {r['n_tracked_3d']} (single process "
           f"{r['single_n_tracked_3d']}), |dTcw.t| {r['dt']:.2e} (gate 1e-4), "
           f"max|dpos| {r['dpos']:.2e} (gate 1e-3), statuses equal on "
-          f"{r['agree']:.4f} (gate 0.98){graph}, every rank's state checksum "
-          f"equal to the others' on every frame; launches per rank "
+          f"{r['agree']:.4f} (gate 0.98){graph}, positions moved by more "
+          f"than 1e-3: {r['moved']}; against one process with the "
+          f"whole-solver kernels (a reading): n_tracked_3d "
+          f"{r['whole_n_tracked_3d']}, |dTcw.t| {w['dt']:.2e}, max|dpos| "
+          f"{w['dpos']:.2e}, statuses equal on {w['agree']:.4f}, positions "
+          f"moved by more than 1e-3: {w['moved']}; every rank's state "
+          f"checksum "
+          f"equal to the others' on every frame; the same bits as this "
+          f"process running the sharded frame as one rank: "
+          f"{r['same_as_one_process']}; launches per rank "
           f"{r['launches'][0]} (all ranks "
-          f"{'equal' if same else r['launches']}"
+          f"{'equal' if same else r['launches']}; wanted "
+          f"{r['want_launches']}"
           f"); graph leaves per rank {r['graph_shapes'][-1]}; "
           f"ms/frame sharded {statistics.median(r['ms']):.2f} (frames "
-          f"{[round(x, 2) for x in r['ms']]}), single process "
+          f"{[round(x, 2) for x in r["ms"]]}), single process with the "
+          f"kernels "
           f"{statistics.median(r['single_ms']):.2f} (frames "
           f"{[round(x, 2) for x in r['single_ms']]})")
     whole = whole_gather_frame_bytes(
@@ -502,6 +725,11 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
           f"({whole / max(r['bytes'][0]):.1f}x)"
           + (f"; predicted (non-keyframe, keyframe) {pred['bytes']}"
              if "bytes" in pred else ""))
+    print(f"{tag} P={P} the sharded pose-only and joint solves' share per "
+          f"frame per rank: {r['solve_payloads'][0]} collectives, "
+          f"{r['solve_bytes'][0]} bytes (frames {r['solve_bytes']})"
+          + (f"; predicted {pred['solve_bytes']} bytes"
+             if "solve_bytes" in pred else ""))
     if r["peak_bytes"][0] is not None:
         print(f"{tag} P={P} peak allocated over the frames "
               f"(max_memory_allocated) per rank "

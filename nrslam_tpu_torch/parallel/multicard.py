@@ -8,10 +8,12 @@ one card).
 on a host with at least N visible cards (N: every visible card, at least
 2). Builds the kernels from ``csrc/`` once, spawns N ranks (``dryrun.World``
 with the NCCL backend: rank r on card r), then runs the keyframe-sharded
-BA at K=8, P=768 (8 and 5 of 8 keyframes valid) and the row-sharded frame
-at 640x480 with 256 new keypoints: P=768 for 6 frames (keyframe at frame
-5) and P=4096 for 3 (keyframe at frame 3), with ``dryrun``'s readings and
-gates (``report_ba``, ``report_frames``). Prints the cards' names and power
+BA at K=8, P=768 (8 and 5 of 8 keyframes valid), the sharded pose-only
+and joint solves at P=768 on the rigid scene against the whole-solver
+kernels (pose 1e-5, flows 2e-4) and the row-sharded frame at 640x480 with
+256 new keypoints: P=768 for 6 frames (keyframe at frame 5) and P=4096 for
+3 (keyframe at frame 3), with ``dryrun``'s readings and gates
+(``report_ba``, ``report_solves``, ``report_frames``). Prints the cards' names and power
 limits first, and raises at the first check outside its gates. A
 measurement on several cards; ``chip_smoke.py`` needs one.
 """
@@ -59,6 +61,8 @@ def main(argv) -> int:
                 "[multicard]", f"kf-sharded BA {n_valid}/8 valid",
                 dryrun.ba_against_plain(outs, cam, poses0, L0, prob, plain),
                 n, L0, prob)
+        dryrun.report_solves("[multicard]", dryrun.solves_against_whole(
+            world, dev, 0.0), n, 1e-5, 2e-4)
         for P, kfs in ((768, [False] * 4 + [True, False]),
                        (4096, [False, False, True])):
             r = dryrun.frames_against_single(world, dev, P, kfs,

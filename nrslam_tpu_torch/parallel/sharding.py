@@ -139,6 +139,47 @@ def all_gather_rows(mesh: Mesh, tensors, dims=None):
     return _all_reduce_packed(mesh, bufs, dist.ReduceOp.SUM)
 
 
+def all_reduce_(mesh: Mesh, buf):
+    """``buf`` summed over the ranks in place (one collective; the kernel
+    routes of the sharded solves reduce their packed buffers with it).
+    Returns ``buf``."""
+    if mesh.group is not None:
+        traffic.add(buf)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    return buf
+
+
+def block_and_sums(mesh: Mesh, block, sums, extent: int):
+    """One collective that gathers and reduces at once: this rank's
+    ``block`` [m, w] lands at its ``rank_block`` rows of a zero-filled
+    [extent, w] buffer, followed by its partial ``sums`` [s]; the SUM over
+    the ranks gives every rank the whole [extent, w] array (zeros added,
+    so every block bit for bit) and the summed [s]."""
+    b = rank_block(mesh, extent)
+    w = block.shape[1]
+    buf = torch.zeros(extent * w + sums.numel(), dtype=block.dtype,
+                      device=block.device)
+    buf[b.start * w:b.stop * w] = block.reshape(-1)
+    buf[extent * w:] = sums.reshape(-1)
+    all_reduce_(mesh, buf)
+    return buf[:extent * w].reshape(extent, w), buf[extent * w:]
+
+
+def rank_ends(mesh: Mesh, i, j, live, extent: int):
+    """This rank's edge-ends: (ptr [m + 1], edge [2E], sign [2E]) with
+    ``pose_deformation_cuda.incidence_csr``'s edge and sign rows and its
+    pointer row restricted to the rank's ``rank_block`` of points, so the
+    ends of local point l sit at positions [ptr[l], ptr[l + 1]) (global
+    positions, each point's live incident edges in edge order, +1 where
+    the point is the edge's i). The rank is to the world what a block is
+    to the cluster kernel (``cluster_layout``)."""
+    from nrslam_tpu_torch.solver.pose_deformation_cuda import incidence_csr
+
+    ptr, edge, sign = incidence_csr(i, j, live, extent)
+    b = rank_block(mesh, extent)
+    return ptr[b.start:b.stop + 1], edge, sign
+
+
 def rank_block(mesh: Mesh, extent: int) -> slice:
     """This rank's contiguous block of an axis of ``extent``: ``[rank * m,
     (rank + 1) * m)``, m = extent / n (the layout of every sharded axis)."""

@@ -15,9 +15,12 @@ KLT references of its slots. Per frame, on every rank:
 4. ``tracking.track_camera_and_deformation`` on the gathered arrays with the
    rank's graph rows (``sharding.MeshRows``): the neighbour table's top-k
    on the rank's rows, gathered to ``[P, k]``; the pose-only and joint
-   solves replicated (on the card, the pose-only and the joint kernel on
-   every rank); the graph update and the ``starved`` test on the rank's
-   rows, ``starved`` gathered; the lost-point drag;
+   solves partitioned over the ranks' slot blocks
+   (``solve_shard.mesh_solves``: each rank solves for its ``P / n``
+   points and their edge-ends, the pose and the LM and CG scalars from
+   all-reduced sums; on the card the sharded phase kernels, never the
+   whole-solver ones); the graph update and the ``starved`` test on the
+   rank's rows, ``starved`` gathered; the lost-point drag;
 5. point reuse's KLT on the rank's slots, and one gather of the keypoints
    and statuses it changed;
 6. on keyframes the new features (dropping the recycled slots' edges from
@@ -39,7 +42,11 @@ gathered; no ``[P, P]`` array is gathered or built whole on a rank.
 Ties in the stable top-k and argsort orders (the triangulation candidates,
 new slots, the BA window) are taken on gathered arrays, and a row's top-k
 (graph neighbours, triangulation neighbours) on its whole columns. The
-three solves stay whole-solver kernels replicated on every rank.
+pose-only and joint solves are partitioned; the keyframe's window BA stays
+replicated (on the card the BA kernel on every rank). The partitioned
+solves sum in another order than the whole-solver ones, so a sharded frame
+agrees with ``system.frame_step`` within float tolerance, not bit for bit;
+they sum by chunk of points, so any number of ranks gives the bits of one.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import torch
 
 from nrslam_tpu_torch.geometry import cameras
 from nrslam_tpu_torch.ops import klt
-from nrslam_tpu_torch.parallel import sharding
+from nrslam_tpu_torch.parallel import sharding, solve_shard
 from nrslam_tpu_torch.parallel.sharding import Mesh
 from nrslam_tpu_torch.slam import mapping as mapping_mod
 from nrslam_tpu_torch.slam import state as state_mod
@@ -95,7 +102,8 @@ def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
     refs = s.refs
     full = sharding.unshard_state(s._replace(refs=None, graph=None), mesh,
                                   axes)._replace(graph=s.graph)
-    full = tracking.track_camera_and_deformation(full, cam, config, rows)
+    full = tracking.track_camera_and_deformation(
+        full, cam, config, rows, solve_shard.mesh_solves(mesh))
 
     mine = _slots(mesh, full, axes)._replace(refs=refs)
     mine = tracking.point_reuse(mine, pyramid, cam, config)

@@ -10,7 +10,7 @@ rows, ``rows.block`` (``graph.Rows``; every row in a single process), and
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -20,6 +20,22 @@ from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam.state import Config, SlamState
 from nrslam_tpu_torch.solver import pose_deformation, pose_only
+
+
+class Solves(NamedTuple):
+    """The two solves of ``track_camera_and_deformation`` on the whole
+    ``[P]`` arrays: ``pose_only(cam, T0, X, obs, valid) -> SE3`` and
+    ``joint(cam, T0, rest, obs, valid, pairs, scale) ->
+    PoseDeformationResult``. ``WHOLE`` solves in this process (the
+    whole-solver kernels on the card); the sharded frame passes
+    ``parallel.solve_shard.mesh_solves``."""
+
+    pose_only: Callable
+    joint: Callable
+
+
+WHOLE = Solves(pose_only.camera_pose_optimization,
+               pose_deformation.pose_deformation_optimization)
 
 
 def update_triangulated_points(state: SlamState) -> SlamState:
@@ -39,17 +55,18 @@ def data_association(state: SlamState, pyramid, config: Config) -> SlamState:
 
 
 def track_camera_and_deformation(state: SlamState, cam, config: Config,
-                                 rows: graph_mod.Rows = graph_mod.ALL):
+                                 rows: graph_mod.Rows = graph_mod.ALL,
+                                 solves: Solves = WHOLE):
     """Motion-model seed -> pose-only -> joint pose+deformation, then
     graph maintenance and the lost-point drag (tracking.cc:291-330). The
     graph's rows give the neighbour table and take the update and the
-    ``starved`` test."""
+    ``starved`` test; ``solves`` run the two solves."""
     T_seed = se3.compose(state.motion_model, state.Tcw)
     prev_Tcw = state.Tcw
 
     with3d = state_mod.tracked_with_3d(state)
-    T_pose = pose_only.camera_pose_optimization(
-        cam, T_seed, state.positions, state.keypoints, with3d)
+    T_pose = solves.pose_only(cam, T_seed, state.positions,
+                              state.keypoints, with3d)
 
     nbr_idx, nbr_w, nbr_d0, nbr_valid = rows.gather(
         *graph_mod.top_k_neighbors(state.graph, with3d,
@@ -58,9 +75,8 @@ def track_camera_and_deformation(state: SlamState, cam, config: Config,
     pairs = pose_deformation.pairs_from_neighbors(nbr_idx, nbr_w, nbr_d0,
                                                   nbr_valid)
 
-    res = pose_deformation.pose_deformation_optimization(
-        cam, T_pose, state.positions, state.keypoints, with3d, pairs,
-        state.scale)
+    res = solves.joint(cam, T_pose, state.positions, state.keypoints,
+                       with3d, pairs, state.scale)
 
     accept = res.reproj_inlier & res.deform_ok
     positions = torch.where(accept[:, None], state.positions + res.flows,

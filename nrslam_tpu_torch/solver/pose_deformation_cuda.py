@@ -16,10 +16,17 @@ on them (``pose_deformation_cuda`` does both). Takes CUDA tensors only and
 raises otherwise, or when the card refuses the cluster; the plain version is
 ``pose_deformation.pose_deformation_plain``. ``launches`` counts launches;
 ``last_work`` is the device header of the last launch (``WORK_FIELDS``).
+
+``shard`` is the partitioned route of the sharded frame
+(``parallel.solve_shard``): the phase kernels of
+csrc/pose_deformation_shard.cu over a rank's points and their edge-ends
+(the CSR of ``incidence_csr``), with the caller's all-reduce between
+launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -30,6 +37,13 @@ from nrslam_tpu_torch.geometry import cameras, se3
 
 launches = 0
 last_work = None
+# Launches of the sharded route's phase kernels (``shard``), by phase, and
+# its calls; ``shard_last_work`` is the device row of the last call's
+# counts (SHARD_WORK_FIELDS).
+shard_launches = {"init": 0, "lin": 0, "step": 0, "hv": 0, "cg": 0}
+shard_calls = 0
+shard_last_work = None
+SHARD_WORK_FIELDS = ("lm_steps", "cg_trips", "linearizations")
 
 # The int32 header the kernels write at the start of their scratch.
 WORK_FIELDS = ("lm_steps", "cg_trips", "linearizations", "blocks",
@@ -169,3 +183,104 @@ def pose_deformation_cuda(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs,
     q = out_pose[:4]
     return se3.SE3(q / torch.linalg.norm(q), out_pose[4:7]), out_flows, \
         out_chi2
+
+
+# csrc/pose_deformation_shard.cu's phases, and the arguments of its kernels.
+_PHASES = ("init", "lin", "step", "hv", "cg")
+_START, _TRIAL = 0, 1
+_NEXT_CG, _NEXT_RELEVEL, _NEXT_FINAL = 0, 1, 2
+
+
+def shard_phase_launches(rounds=(10, 10), cg_iters: int = 10) -> dict:
+    """The phase launches one ``shard`` call makes with this schedule."""
+    steps = sum(rounds)
+    return {"init": 1, "lin": len(rounds) + steps,
+            "step": len(rounds) + steps, "hv": steps * cg_iters,
+            "cg": steps * cg_iters}
+
+
+def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
+          base, scale, rounds, cg_iters: int, block: slice, rank: int,
+          n: int, reduce):
+    """The joint solve over this rank's ``block`` of the points as phase
+    kernels (csrc/pose_deformation_shard.cu): rest [P, 3] and point_valid
+    [P] of every point, obs [m, 2] of the block, ``pairs`` the compacted
+    edge table (int64 i, j) and ``base`` its live mask; ``reduce`` sums a
+    buffer over the n ranks in place (``sharding.all_reduce_``) between
+    launches, as ``solve_shard`` lays out. Returns (Tcw, flows [P, 3],
+    chi2_r [P]), the same on every rank. Raises if a kernel cannot build or
+    launch."""
+    global shard_calls, shard_last_work
+    from nrslam_tpu_torch.solver.pose_deformation import infos_for
+
+    P = rest.shape[0]
+    p0, m = block.start, block.stop - block.start
+    rounds = tuple(int(k) for k in rounds)
+    if obs.shape != (m, 2) or point_valid.shape != (P,):
+        raise ValueError("pose_deformation shard: expected obs [m,2], "
+                         "point_valid [P]")
+    if not rounds or min(rounds) < 0 or cg_iters < 1:
+        raise ValueError(f"pose_deformation shard: rounds {rounds}, "
+                         f"cg_iters {cg_iters}")
+    info_r, info_s, info_p = infos_for(torch.as_tensor(
+        scale, dtype=torch.float32, device=rest.device))
+    params = torch.cat([
+        F.pad(cam.params.to(torch.float32), (0, 8 - cam.params.shape[0])),
+        Tcw0.q.to(torch.float32), Tcw0.t.to(torch.float32),
+        torch.stack([torch.full_like(info_s, info_r), info_s,
+                     torch.full_like(info_s, info_p)])]).contiguous()
+    inc_ptr, inc_edge, inc_sign = incidence_csr(pairs.i, pairs.j, base, P)
+    tensors = (params, rest.to(torch.float32).contiguous(),
+               point_valid.to(torch.float32).contiguous(),
+               obs.to(torch.float32).contiguous(),
+               pairs.i.to(torch.int32).contiguous(),
+               pairs.j.to(torch.int32).contiguous(),
+               pairs.w.to(torch.float32).contiguous(),
+               torch.clamp(pairs.d0.to(torch.float32), min=1e-12),
+               base.to(torch.float32).contiguous(), inc_ptr, inc_edge,
+               inc_sign)
+    dev = kernels.require_cuda("pose_deformation shard", *tensors)
+    lib = kernels.library()
+    n_ends = inc_edge.shape[0]
+    lay = (ctypes.c_long * 5)()
+    kernels.check_launch("pose_deformation shard layout",
+                         lib.nrslam_joint_shard_layout(
+                             m, P, n_ends, n, ctypes.addressof(lay)))
+    total, red_at, reds_at, work_at, chunk = lay
+    nc = -(-P // chunk)
+    scratch = torch.zeros(total, dtype=torch.float32, device=dev)
+    red = scratch[red_at:red_at + 3 * P + 2 * nc]
+    reds = scratch[reds_at:reds_at + 28 * nc + n]
+    out_pose = torch.empty(8, dtype=torch.float32, device=dev)
+    out_flows = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in tensors]
+    args = (_KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
+            out_pose.data_ptr(), out_flows.data_ptr(), P, m, p0, n_ends,
+            rank, n, kernels.stream_of(dev))
+
+    def run(phase, arg=0):
+        rc = lib.nrslam_joint_shard(_PHASES.index(phase), arg, ptrs[0],
+                                    *args)
+        kernels.check_launch(f"pose_deformation shard {phase}", rc)
+        shard_launches[phase] += 1
+
+    run("init")
+    for r, n_lm in enumerate(rounds):
+        after = _NEXT_FINAL if r + 1 == len(rounds) else _NEXT_RELEVEL
+        run("lin", _START)
+        reduce(reds)
+        run("step", _NEXT_CG if n_lm else after)
+        for it in range(n_lm):
+            reduce(red)
+            for t in range(cg_iters):
+                run("hv", int(t == 0))
+                reduce(reds[:7 * nc])
+                run("cg", int(t == cg_iters - 1))
+                reduce(red)
+            run("lin", _TRIAL)
+            reduce(reds[:28 * nc])
+            run("step", 4 | (_NEXT_CG if it + 1 < n_lm else after))
+    reduce(red[:P])
+    shard_calls += 1
+    shard_last_work = scratch[work_at:work_at + len(SHARD_WORK_FIELDS)]
+    return se3.SE3(out_pose[:4], out_pose[4:7]), out_flows, red[:P]

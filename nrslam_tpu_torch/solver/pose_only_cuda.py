@@ -11,6 +11,10 @@ Takes CUDA tensors only and raises otherwise; the plain PyTorch version is
 ``pose_only.camera_pose_optimization_plain``. ``launches`` counts the kernel
 launches; ``last_lm_steps`` is a device tensor [1] holding the LM steps the
 last launch ran.
+
+``shard`` is the partitioned route of the sharded frame
+(``parallel.solve_shard``): the phase kernels of csrc/pose_only_shard.cu
+over a rank's points, with the caller's all-reduce between launches.
 """
 
 from __future__ import annotations
@@ -20,12 +24,19 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
 
 launches = 0
 last_lm_steps = None
+# Launches of the sharded route's phase kernels (``shard``), by phase, and
+# its calls; ``shard_last_steps`` a device tensor [1] holding the LM steps
+# the last call ran.
+shard_launches = {"partials": 0, "step": 0, "relevel": 0}
+shard_calls = 0
+shard_last_steps = None
 
 _KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
 _N_PARAMS = {cameras.PINHOLE: 4, cameras.KB8: 8}
@@ -157,3 +168,78 @@ def camera_pose_optimization_cuda(cam: cameras.Camera, Tcw0: se3.SE3,
     obs [P, 2], valid [P] bool; any number of rounds."""
     out = launch(prepare(cam, Tcw0, landmarks, obs, valid, rounds))
     return se3.SE3(out[:4], out[4:7])
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_layout(lib: ctypes.CDLL) -> tuple:
+    """(floats of the device row, offset of the result, of the seed, of the
+    trial pose, points a chunk of the partial sums covers) of
+    csrc/pose_only_shard.cu."""
+    out = (ctypes.c_int * 5)()
+    kernels.check_launch("pose_only shard layout",
+                         lib.nrslam_pose_shard_layout(ctypes.addressof(out)))
+    return tuple(out)
+
+
+def shard_phase_launches(rounds=(10, 10, 10)) -> dict:
+    """The phase launches one ``shard`` call makes with this schedule."""
+    evaluations = sum(rounds) + len(rounds)
+    return {"partials": evaluations, "step": evaluations,
+            "relevel": len(rounds) - 1}
+
+
+def shard(cam: cameras.Camera, Tcw0: se3.SE3, X, obs, valid, rounds,
+          block: slice, P: int, reduce) -> se3.SE3:
+    """The pose-only solve over this rank's points X [m, 3], obs [m, 2],
+    valid [m] (CUDA tensors), the ``block`` of the P points, as phase
+    kernels (csrc/pose_only_shard.cu): per LM trip the rank's partial sums
+    by chunk of points, ``reduce`` (an in-place sum of them over the ranks,
+    ``sharding.all_reduce_``), the LM step on the device; the re-level
+    between rounds on the rank's points. The same pose on every rank (q
+    normalised). Raises if a kernel cannot build or launch."""
+    global shard_calls, shard_last_steps
+    m = X.shape[0]
+    rounds = tuple(int(n) for n in rounds)
+    if X.shape != (m, 3) or obs.shape != (m, 2) or valid.shape != (m,):
+        raise ValueError("pose_only shard: expected X [m,3], obs [m,2], "
+                         "valid [m]")
+    if not rounds or any(n < 0 for n in rounds):
+        raise ValueError(f"pose_only shard: rounds {rounds}")
+    params = F.pad(cam.params.to(torch.float32),
+                   (0, 8 - cam.params.shape[0])).contiguous()
+    X = X.to(torch.float32).contiguous()
+    obs = obs.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous().view(torch.uint8)
+    dev = kernels.require_cuda("pose_only shard", params, X, obs, valid)
+    lib = kernels.library()
+    n_st, out_at, seed_at, trial_at, chunk = _shard_layout(lib)
+    nc = -(-P // chunk)
+    st = torch.zeros(n_st, dtype=torch.float32, device=dev)
+    st[seed_at:seed_at + 4] = Tcw0.q
+    st[seed_at + 4:seed_at + 7] = Tcw0.t
+    level = valid.clone()
+    red = torch.empty(28 * nc, dtype=torch.float32, device=dev)
+    kind, stream = _KINDS[cam.kind], kernels.stream_of(dev)
+
+    def run(phase, rc):
+        kernels.check_launch(f"pose_only shard {phase}", rc)
+        shard_launches[phase] += 1
+
+    for r, n in enumerate(rounds):
+        for k in range(n + 1):
+            run("partials", lib.nrslam_pose_shard_partials(
+                params.data_ptr(), st.data_ptr(),
+                seed_at if k == 0 else trial_at, X.data_ptr(),
+                obs.data_ptr(), level.data_ptr(), m, block.start, P, kind,
+                int(k > 0), red.data_ptr(), stream))
+            reduce(red)
+            run("step", lib.nrslam_pose_shard_step(
+                st.data_ptr(), red.data_ptr(), nc, int(k == 0), stream))
+        if r + 1 < len(rounds):
+            run("relevel", lib.nrslam_pose_shard_relevel(
+                params.data_ptr(), st.data_ptr(), X.data_ptr(),
+                obs.data_ptr(), valid.data_ptr(), level.data_ptr(), m, kind,
+                stream))
+    shard_calls += 1
+    shard_last_steps = st[out_at + 7:out_at + 8]
+    return se3.SE3(st[out_at:out_at + 4], st[out_at + 4:out_at + 7])

@@ -25,7 +25,8 @@ for name in names:
 import chip_smoke
 assert len(names) >= 20, names
 parallel = {"nrslam_tpu_torch.parallel." + m for m in (
-    "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun")}
+    "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun",
+    "solve_shard")}
 assert parallel <= set(names), sorted(parallel - set(names))
 import multiprocessing
 import torch.distributed as dist

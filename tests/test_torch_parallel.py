@@ -150,13 +150,35 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
                                    np.asarray(getattr(jg, f)), atol=1e-3)
 
 
+def _solve_floats(P, n, pose_rounds=(10, 10, 10), rounds=(10, 10),
+                  cg_iters=10):
+    """(collectives, float32 elements) of one frame's sharded pose-only
+    and joint solves (parallel/solve_shard.py), whose sums travel as rows
+    of c = ceil(P / 64) chunks: 28 a chunk per pose-only evaluation; the
+    joint's rest / mask gather [P, 4], each round's first system with the
+    ranks' diagonals (28 c + n), per LM step the PCG start and each CG
+    trip's z or trial flows with two sums a chunk (3P + 2c) and the trips'
+    7 c and the trial system's 28 c, and the final chi2 gather [P]."""
+    c = -(-P // 64)
+    evals = sum(pose_rounds) + len(pose_rounds)
+    steps = sum(rounds)
+    count = evals + 1 + len(rounds) + steps * (2 + 2 * cg_iters) + 1
+    floats = (28 * c * evals + 4 * P + len(rounds) * (28 * c + n)
+              + steps * ((cg_iters + 1) * (3 * P + 2 * c) + 7 * c * cg_iters
+                         + 28 * c)
+              + P)
+    return count, floats
+
+
 def test_sharded_frames_keep_graph_rows(world):
     """At P = 768 (the main path's slots, where a ``[P, P]`` payload would
     stand out from the ``[P]``, ``[P, k]`` and ring gathers), a non-keyframe
     and a keyframe on ``dryrun.small_problem``: every rank holds ``[192,
     768]`` graph leaves after each frame, no collective payload reaches
-    ``P * P / 4`` elements, and a frame's collectives carry less than one
-    ``[P, P]`` float32 matrix; the ranks agree with each other."""
+    ``P * P / 4`` elements, and a frame's collectives other than the
+    sharded solves' carry less than one ``[P, P]`` float32 matrix; the
+    solves' share is exactly their schedule's (O(P) a CG trip, no ``[P,
+    P]`` term); the ranks agree with each other."""
     P = 768
     state, gray, mask, cam, config = dryrun.small_problem(P, "cpu")
     outs = world.run("sharded_frames", convert.to_numpy(state),
@@ -165,7 +187,11 @@ def test_sharded_frames_keep_graph_rows(world):
     for out in outs:
         assert out["graph_shapes"] == [[(P // N_RANKS, P)]] * 2
         assert max(out["max_payload"]) < P * P // N_RANKS
-        assert max(out["bytes"]) < 4 * P * P
+        count, floats = _solve_floats(P, N_RANKS)
+        assert out["solve_payloads"] == [count] * 2
+        assert out["solve_bytes"] == [4 * floats] * 2
+        assert max(b - s for b, s in zip(out["bytes"],
+                                         out["solve_bytes"])) < 4 * P * P
         assert out["n_tracked_3d"] == outs[0]["n_tracked_3d"]
     assert min(outs[0]["n_tracked_3d"]) >= 100
     assert outs[0]["state"].graph is None
