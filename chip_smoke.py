@@ -114,39 +114,56 @@ prints its seconds):
      points (<= 1e-5 max|H|); the pose-only solve and then the joint
      solve partitioned over the ranks' P/4 blocks (the phase kernels on
      every rank, partial sums all-reduced between launches) against the
-     whole-solver kernels at pinhole P=768, rigid under the same-device
-     gates and deformed under 3x the spreads phase 3a measured, every rank
-     the same bits (dryrun.report_solves); the keyframe-sharded BA
-     at the ring's size (K=8, P=768, E from the K=11 kNN graph,
-     n_iters=5, cg_iters=32) against the plain BA (poses <= 2e-4,
+     whole-solver kernels at pinhole P=768 on the rigid scene under the
+     same-device gates, every rank the same bits (dryrun.report_solves);
+     the window BA partitioned over
+     the ranks' P/4 point blocks (W=5: P=768 with 5 and 3 of 5 slots
+     valid, P=4096 with 5)
+     against the whole-solver BA kernel and plain under the same-device BA
+     gate and bit for bit against this process running it as one rank,
+     with its phase launches (dryrun.report_points_ba); the
+     keyframe-sharded BA at the ring's size (K=8, P=768, E from the K=11
+     kNN graph, n_iters=5, cg_iters=32) against the plain BA (poses <= 2e-4,
      landmarks <= 2e-3, RMSE < 0.2x its start), and a window with 5 of 8
      valid; the row-sharded frame_step (each rank builds the seeded
      problem with only its [P/4, P] graph rows) at 640x480/256 new
-     keypoints, P=768 for 6 frames with a keyframe at frame 5 and P=4096
-     for 3 frames with a keyframe at frame 3, the pose-only and joint
-     solves partitioned, against system.frame_step in this process with
-     those two solves by the plain drivers (n_tracked_3d equal, Tcw.t
-     <= 1e-4, positions <= 1e-3, statuses equal on >= 98% of slots, at
+     keypoints, P=768 for 6 frames with keyframes at frames 3 and 5 and
+     P=4096 for 3 frames with a keyframe at frame 3 (dryrun.FRAME_RUNS: at
+     P=768 the second keyframe's window holds 3 valid keyframes, so its
+     BA's result is applied), the pose-only and joint
+     solves and the keyframe's window BA partitioned (the keyframe ring's
+     columns on their rank, the temporal ring replicated, neither
+     gathered), against system.frame_step in this process with
+     those three solves by the plain drivers (n_tracked_3d equal, Tcw.t
+     <= 1e-4, positions <= 1e-3, statuses equal on >= 98% of slots, the
+     keyframe ring's validity equal, its poses <= 1e-4 and copies <= 1e-3,
+     at
      P=768 the graph gathered once at the end: edges and bad flags equal,
      distances and weights <= 1e-3) and bit for bit against this process
      running frame_step_sharded as one rank (every leaf of the state, the
-     counts and flags of every frame); the readings against
+     counts and flags of every frame), and that one rank with one
+     process's solves bit for bit against system.frame_step (the frame's
+     own work: dryrun.structure_against_one_process; also at
+     P=4096 with keyframes at frames 2 and 3, where the BA is applied);
+     the readings against
      system.frame_step with the whole-solver kernels are printed (at
      P=4096 that frame flips one point's gate against the plain drivers:
      PERF.md §6); launches on every rank as dryrun.frame_launches
-     counts them: per frame one sharded pose-only and one sharded joint
-     call with their phase launches, no whole-solver pose-only or joint
-     launch, the BA kernel once per keyframe; every collective payload
-     under P*P/4 elements; the frame raises unless every rank's state
+     counts them: per frame one partitioned pose-only and one partitioned
+     joint call and per keyframe one partitioned window BA with their phase
+     launches, no whole-solver pose-only, joint or BA launch; every
+     collective payload under P*P/4 elements; each frame's collective
+     bytes and the partitioned solves' bytes and collectives equal to
+     dryrun.PREDICTED; the frame raises unless every rank's state
      checksum equals the others' after each frame);
      then the keyframe-sharded BA in this process on NCCL with world size
      1 under the same gates. Prints ms/frame of the sharded and the
      single-process frame (four processes share the card: a
      measurement), each rank's collective payload bytes per frame beside
      the whole-state gather's (worked out from its gathers) and the
-     prediction, the sharded solves' share of them (collectives and bytes)
-     beside theirs, and at P=4096 each rank's peak allocated memory over
-     the frames beside the single process's and the prediction.
+     prediction, the partitioned solves' share of them (collectives and
+     bytes) beside theirs, and at P=4096 each rank's peak allocated memory
+     over the frames beside the single process's and the prediction.
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the sharded routes' entries count rank
@@ -620,8 +637,8 @@ def shard_kernel_phase(dev, whole: dict):
     launches as ``shard_phase_launches`` counts them. Times the wrapper
     (CUDA events) and the sum of its phase launches (torch.profiler) beside
     the whole-solver kernel; the plain drivers' times are ``whole``'s (the
-    [kernel] records, the same problem). Returns (the two routes' records,
-    the deformed P=768 pinhole spreads for [parallel])."""
+    [kernel] records, the same problem). Returns the two routes'
+    records."""
     from nrslam_tpu_torch.bench_problem import solver_problem
     from nrslam_tpu_torch.parallel import sharding, solve_shard
     from nrslam_tpu_torch.solver import pose_deformation as pd
@@ -631,8 +648,7 @@ def shard_kernel_phase(dev, whole: dict):
 
     mesh = sharding.make_mesh(dev)
     assert mesh.group is None
-    rec, err, spreads = {}, {"pose_only_shard": 0.0,
-                             "pose_deformation_shard": 0.0}, {}
+    rec, err = {}, {"pose_only_shard": 0.0, "pose_deformation_shard": 0.0}
     for kind, P, deform in (("pinhole", 768, 0.0), ("pinhole", 768, 0.05),
                             ("kb8", 768, 0.0), ("kb8", 768, 0.05),
                             ("pinhole", 384, 0.0), ("kb8", 384, 0.0)):
@@ -663,8 +679,6 @@ def shard_kernel_phase(dev, whole: dict):
             tol = max(tol, 3 * max(sq, st))
             gate = (f"3x the plain driver's spread under {SPREAD_PERMS} "
                     f"permutations, {max(sq, st):.3e}")
-            if (kind, P) == ("pinhole", 768):
-                spreads["pose"] = max(sq, st)
         print(f"[kernel] pose_only_shard {label}: against the whole-solver "
               f"kernel {d_w:.3e}, against plain {d_p:.3e} (tol {tol:.3e}, "
               f"{gate}); phase launches {one}")
@@ -710,8 +724,6 @@ def shard_kernel_phase(dev, whole: dict):
             tp, tf = max(tp, 3 * sp), max(tf, 3 * sf)
             gate = (f"3x the plain driver's spread under {SPREAD_PERMS} "
                     f"permutations, pose {sp:.3e}, flow {sf:.3e}")
-            if (kind, P) == ("pinhole", 768):
-                spreads["joint"] = (sp, sf)
         print(f"[kernel] pose_deformation_shard {label}: against the "
               f"whole-solver kernel pose {dpw:.3e} max|dflow| {dfw:.3e}, "
               f"against plain pose {dpp:.3e} max|dflow| {dfp:.3e} (tol pose "
@@ -769,7 +781,112 @@ def shard_kernel_phase(dev, whole: dict):
     for name in rec:
         rec[name]["err"] = err[name]
     torch.cuda.synchronize()
-    return rec, spreads
+    return rec
+
+
+def ba_shard_kernel_phase(dev, whole: dict):
+    """The window BA's partitioned route (parallel/ba_points.py on CUDA
+    tensors: the phase kernels of csrc/bundle_adjustment_shard.cu) in this
+    process without a process group, so it solves the whole window, at the
+    keyframe's shapes (W=5, P=768, E=5376, Config().ba_cg_iters), held to
+    the whole-solver BA kernel and to the plain BA under the same-device BA
+    gate on pose and every observed copy: pinhole on the deformed (0.02)
+    and the rigid window, KB8, a window with 3 of 5 slots valid, and the
+    deformed pinhole window at the sharded frame's P=4096;
+    unobserved copies unchanged; two calls bit-identical; each call's phase
+    launches as ``shard_phase_launches`` counts them. Times the wrapper
+    (CUDA events) and the sum of its phase launches' device time
+    (torch.profiler) on the deformed pinhole window beside the
+    whole-solver wrapper; plain's time is ``whole``'s (the [kernel] record,
+    the same window). Returns the route's record."""
+    from nrslam_tpu_torch.bench_problem import ba_problem
+    from nrslam_tpu_torch.parallel import ba_points, sharding
+    from nrslam_tpu_torch.slam.state import Config
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+
+    mesh = sharding.make_mesh(dev)
+    assert mesh.group is None
+    cg = Config().ba_cg_iters
+    err, rec = 0.0, None
+    for kind, n_valid, deform, P in (
+            ("pinhole", 5, 0.02, 768), ("pinhole", 5, 0.0, 768),
+            ("kb8", 5, 0.02, 768), ("pinhole", 3, 0.02, 768),
+            ("pinhole", 5, 0.02, 4096)):
+        cam, poses0, L0, prob = ba_problem(kind, n_valid, device=dev,
+                                           deform_amp=deform, P=P)
+        label = (f"{kind} P={P} {n_valid}/5 valid "
+                 f"{'rigid' if deform == 0 else 'deformed'}")
+
+        def call():
+            return ba_points.local_deformable_ba_sharded(
+                mesh, cam, poses0, L0, prob, 5, cg)
+
+        before = dict(bac.shard_launches)
+        p_s, L_s = call()
+        one = {k: v - before[k] for k, v in bac.shard_launches.items()}
+        work = dict(zip(("lm_steps", "cg_trips", "linearizations"),
+                        bac.shard_last_work.int().tolist()))
+        p_2, L_2 = call()
+        same = (torch.equal(L_s, L_2) and torch.equal(p_s.q, p_2.q)
+                and torch.equal(p_s.t, p_2.t))
+        live = prob.kf_valid
+        seen = prob.obs_valid & live[:, None]
+
+        def diffs(p, L):
+            dq = max(quat_err(p_s.q[k], p.q[k]) for k in range(5) if live[k])
+            dt = float(torch.max(torch.linalg.norm(p_s.t - p.t,
+                                                   dim=-1)[live]))
+            return max(dq, dt), float(torch.max(torch.linalg.norm(
+                L_s - L, dim=-1)[seen]))
+
+        (dpw, dLw) = diffs(*bac.local_deformable_ba_cuda(cam, poses0, L0,
+                                                         prob, cg_iters=cg))
+        (dpp, dLp) = diffs(*ba.local_deformable_ba_plain(cam, poses0, L0,
+                                                         prob, 5, cg))
+        unchanged = bool(torch.equal(L_s[~seen], L0[~seen]))
+        tol = SAME_DEVICE_BA_TOL
+        print(f"[kernel] bundle_adjustment_shard {label}: against the "
+              f"whole-solver kernel pose {dpw:.3e} max|dL| {dLw:.3e}, "
+              f"against plain pose {dpp:.3e} max|dL| {dLp:.3e} (tol "
+              f"{tol:.0e}, same-device gate); unobserved copies unchanged="
+              f"{unchanged}; work {work}; phase launches {one}")
+        print(f"[determinism] bundle_adjustment_shard {label}: two calls "
+              f"bit-identical={same}")
+        if not (same and unchanged and max(dpw, dLw, dpp, dLp) < tol
+                and one == bac.shard_phase_launches(cg_iters=cg)):
+            raise AssertionError(f"bundle_adjustment_shard {label} outside "
+                                 "gates")
+        err = max(err, dpw, dLw)
+        if (kind, n_valid, deform, P) != ("pinhole", 5, 0.02, 768):
+            continue
+        ms = cuda_ms(call, 2, 10)
+        k_ms, n_k = phase_kernel_ms(call, ("init_kernel", "lin_kernel",
+                                           "step_kernel", "hv_kernel",
+                                           "cg_kernel"))
+        w_ms = cuda_ms(lambda: bac.local_deformable_ba_cuda(
+            cam, poses0, L0, prob, cg_iters=cg))
+        E_live = int(torch.any(ba._masks(prob._replace(
+            pairs=prob.pairs._replace(i=prob.pairs.i.long(),
+                                      j=prob.pairs.j.long())))[1],
+            dim=0).sum())
+        flops = ba_flops(work, 5, L0.shape[1], E_live)
+        n_b = (nbytes(cam.params, poses0.q, poses0.t, L0, prob.obs,
+                      prob.obs_valid, prob.pairs.i, prob.pairs.j,
+                      prob.pairs.w, prob.pairs.d0, prob.pairs.valid)
+               + nbytes(L_s) + 5 * 7 * 4)
+        rec = kernel_record(k_ms, ms, whole["bundle_adjustment"]["plain_ms"],
+                            flops, n_b, work)
+        print(f"[kernel] bundle_adjustment_shard {label}: wrapper {ms:.4f} "
+              f"ms, its {n_k} phase launches {k_ms:.4f} ms of device time "
+              f"(torch.profiler), the whole-solver wrapper {w_ms:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms; {E_live} live edges; bound "
+              f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}: "
+              f"{flops / 1e6:.2f} MFLOP, {n_b / 1e6:.3f} MB), phase kernels "
+              f"/ bound {k_ms / rec['bound_ms']:.0f}")
+    rec["err"] = err
+    torch.cuda.synchronize()
+    return rec
 
 
 def ba_kernel_phase(dev):
@@ -1625,25 +1742,7 @@ def _np(tree):
     return convert.to_numpy(tree)
 
 
-# The sharded frame's points: the main path's P, and P = 4096, where the
-# [P, P] graph (302 MB) and its temporaries dominate a process's memory.
-PARALLEL_POINTS = (768, 4096)
-# Predicted before the first run on the card (PERF.md §6), printed beside the
-# readings; not gates. Bytes: each rank's collective payload bytes per
-# frame (non-keyframe, keyframe), the sharded frame's gathers plus the
-# sharded solves' share (``solve_bytes``: their schedule's payloads,
-# tests/test_torch_parallel.py ``_solve_floats``); peak: each rank's and
-# the single process's max_memory_allocated over the frames at P = 4096,
-# MB.
-PREDICTED = {768: {"bytes": (2_937_696, 2_992_864),
-                   "solve_bytes": 2_205_152},
-             4096: {"bytes": (15_658_144, 15_959_584),
-                    "solve_bytes": 11_760_672,
-                    "rank_peak_mb": (490, 505),
-                    "single_peak_mb": (1245, 1260)}}
-
-
-def parallel_phase(dev, card: str, spreads: dict, world, tmp: str):
+def parallel_phase(dev, card: str, world, tmp: str):
     """[parallel]: the 4 ranks of ``world`` (spawned on this one card at the
     script's start: gloo over a FileStore in ``tmp``,
     ``parallel.dryrun.World``) run the pose normal equations sharded over
@@ -1681,51 +1780,61 @@ def parallel_phase(dev, card: str, spreads: dict, world, tmp: str):
             and dg <= 1e-5 * max(1.0, float(abs(g_ref).max()))):
         raise AssertionError("parallel: pose system outside gates")
 
-    # The sharded pose-only and joint solves alone at P=768 against
-    # the whole-solver kernels in this process.
-    # on the rigid scene under the same-device gates, on the deformed one
-    # under 3x the plain drivers' spreads that [kernel] measured.
-    for deform in (0.0, 0.05):
-        tp, tf = SAME_DEVICE_POSE_TOL, SAME_DEVICE_FLOW_TOL
-        if deform:
-            tp = max(tp, 3 * spreads["pose"], 3 * spreads["joint"][0])
-            tf = max(tf, 3 * spreads["joint"][1])
-        dryrun.report_solves("[parallel]", dryrun.solves_against_whole(
-            world, dev, deform), n, tp, tf)
+    # The sharded pose-only and joint solves alone at P=768 on the rigid
+    # scene against the whole-solver kernels in this process under the
+    # same-device gates (the deformed scene: [kernel], and the frames).
+    dryrun.report_solves("[parallel]", dryrun.solves_against_whole(
+        world, dev, 0.0), n, SAME_DEVICE_POSE_TOL, SAME_DEVICE_FLOW_TOL)
 
-    # The keyframe-sharded BA at the ring's size.
-    for n_valid in (8, 5):
-        cam_b, poses0, L0, prob = bench_problem.ba_problem(
-            n_valid=n_valid, device=dev, K=8, P=768)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob,
-                                             5, 32)
-        torch.cuda.synchronize()
-        print(f"[parallel] plain single-process BA {n_valid}/8 "
-              f"valid: {1e3 * (time.perf_counter() - t1):.2f} ms")
-        outs = world.run("kf_sharded_ba", _np(cam_b), _np(poses0),
-                         _np(L0), _np(prob), 5, 32)
-        dryrun.report_ba(
-            "[parallel]", f"kf-sharded BA {n_valid}/8 valid",
-            dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob,
-                                    plain), n, L0, prob)
+    # The window BA partitioned over the ranks' point blocks, against the
+    # whole-solver kernel, plain and this process as one rank, at both of
+    # the sharded frame's P.
+    for n_valid, P in ((5, 768), (3, 768), (5, 4096)):
+        dryrun.report_points_ba("[parallel]", dryrun.points_ba_against_whole(
+            world, dev, n_valid, P), n, SAME_DEVICE_BA_TOL)
+
+    # The keyframe-sharded BA at the ring's size, 5 of 8 slots valid (all
+    # 8: on NCCL below).
+    cam_b, poses0, L0, prob = bench_problem.ba_problem(
+        n_valid=5, device=dev, K=8, P=768)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = ba.local_deformable_ba_plain(cam_b, poses0, L0, prob, 5, 32)
+    torch.cuda.synchronize()
+    print(f"[parallel] plain single-process BA 5/8 valid: "
+          f"{1e3 * (time.perf_counter() - t1):.2f} ms")
+    outs = world.run("kf_sharded_ba", _np(cam_b), _np(poses0), _np(L0),
+                     _np(prob), 5, 32)
+    dryrun.report_ba("[parallel]", "kf-sharded BA 5/8 valid",
+                     dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob,
+                                             plain), n, L0, prob)
 
     # The row-sharded frame against the single-process frame: each
     # rank builds the seeded problem with its own graph rows. The
     # ranks share the card: a measurement, no speed-up expected.
-    launches = {"pose_only_shard": 0, "pose_deformation_shard": 0}
-    for P, kfs in zip(PARALLEL_POINTS,
-                      ([False] * 4 + [True, False],
-                       [False, False, True])):
+    launches = {"pose_only_shard": 0, "pose_deformation_shard": 0,
+                "bundle_adjustment_shard": 0}
+    for P, kfs in dryrun.FRAME_RUNS:
         r = dryrun.frames_against_single(world, dev, P, kfs,
                                          gather_graph=P <= 768)
         dryrun.report_frames("[parallel]", card, r, P, kfs,
-                             PREDICTED.get(P))
+                             dryrun.PREDICTED[P])
         for k, v in r["launches"][0].items():
             route = k.split(".")[0]
             if route in launches and not k.endswith(".calls"):
                 launches[route] += v
+
+    # A window of 3 keyframes at P=4096 (keyframes at frames 2 and 3): the
+    # sharded frame's own work, the BA's write-back included, bit for bit
+    # one process's with the same solves; the partitioned solves'
+    # n_tracked_3d beside it is a reading (they flip one slot at frame 3
+    # against the plain drivers, PERF.md §6).
+    kfs = (False, True, True)
+    r = dryrun.structure_against_one_process(dev, 4096, kfs)
+    dryrun.report_structure("[parallel]", r)
+    _, part, _ = dryrun.one_rank_frames(dev, 4096, kfs)
+    print(f"[parallel] the same frames with the partitioned solves as one "
+          f"rank (a reading): n_tracked_3d {part}")
 
     # NCCL, world size 1, in this process.
     cam_b, poses0, L0, prob = bench_problem.ba_problem(
@@ -1753,9 +1862,9 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     """Every phase of the default run, in order; returns (the kernels'
     records, their launches on the paths that drive them)."""
     rec = phase("kernels", kernel_phase, dev)
-    shard_rec, spreads = phase("sharded kernels", shard_kernel_phase, dev,
-                               rec)
-    rec.update(shard_rec)
+    rec.update(phase("sharded kernels", shard_kernel_phase, dev, rec))
+    rec["bundle_adjustment_shard"] = phase(
+        "partitioned BA kernels", ba_shard_kernel_phase, dev, rec)
     phase("shared-memory overflow", overflow_phase, dev)
     phase("slice parity", slice_parity, dev)
     phase("system parity", system_parity, dev)
@@ -1768,8 +1877,8 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     phase("disk-hamlyn", disk_hamlyn, dev, card)
     phase("disk-simulation", disk_simulation, dev, card)
     phase("collapse", collapse_phase, dev, card)
-    launches.update(phase("parallel", parallel_phase, dev, card, spreads,
-                          world, tmp))
+    launches.update(phase("parallel", parallel_phase, dev, card, world,
+                          tmp))
     return rec, launches
 
 
@@ -1782,6 +1891,10 @@ def main():
                          "--wrappers TREE]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    # cuBLAS deterministic too where [parallel]'s plain-driver process turns
+    # on torch's deterministic algorithms (dryrun._plain_solves); read when
+    # the first cuBLAS handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     root = os.path.abspath(args[1]) if wrappers else REPO
     sys.path.insert(0, root)
     from nrslam_tpu_torch import kernels
@@ -1843,6 +1956,9 @@ def main():
         "pose_deformation_shard": (
             "nrslam_tpu_torch/csrc/pose_deformation_shard.cu",
             "nrslam_tpu/solver/pose_deformation_pallas.py:81"),
+        "bundle_adjustment_shard": (
+            "nrslam_tpu_torch/csrc/bundle_adjustment_shard.cu",
+            "nrslam_tpu/solver/bundle_adjustment_pallas.py:66"),
     }
     kernels_json = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -142,13 +142,14 @@ def solver_problem(kind: str = cameras.PINHOLE, device=None,
 
 
 def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,
-               seed: int = 0, K: int = 5, P: int = 768):
+               seed: int = 0, K: int = 5, P: int = 768,
+               deform_amp: float = 0.02):
     """A seeded keyframe-BA window at the keyframe's shapes: K=5 keyframes
     (K <= 8) of a sideways sweep over P=768 landmarks that deform between
-    keyframes
-    (amplitude 0.02), exact observations of which ~25% per keyframe are
-    masked, noisy seeds (poses +N(0, 0.01), landmarks +N(0, 0.03)) and a
-    K=11 nearest-neighbour pair table (E = 5376 after ``compact_pairs``).
+    keyframes (amplitude ``deform_amp``; 0 for a rigid map), exact
+    observations of which ~25% per keyframe are masked, noisy seeds (poses
+    +N(0, 0.01), landmarks +N(0, 0.03)) and a K=11 nearest-neighbour pair
+    table (E = 5376 after ``compact_pairs``).
     With ``n_valid`` < K the oldest slots are invalid as the pipeline leaves
     them after ``bootstrap_map``: zero landmarks at the identity pose, no
     observations.
@@ -163,7 +164,7 @@ def ba_problem(kind: str = cameras.PINHOLE, n_valid: int = 5, device=None,
     rng = np.random.default_rng(seed)
     X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P),
                   rng.uniform(2.5, 3.8, P)], -1).astype(np.float32)
-    L = np.stack([X + 0.02 * np.stack([
+    L = np.stack([X + deform_amp * np.stack([
         np.sin(X[:, 0] * 2 + k), np.cos(X[:, 1] + 0.5 * k),
         np.sin(X[:, 0] + X[:, 1] + k)], -1) for k in range(K)]
     ).astype(np.float32)

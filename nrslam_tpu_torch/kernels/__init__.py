@@ -58,6 +58,9 @@ _SIGNATURES = {
     "nrslam_joint_shard_layout": (_I, [_I] * 4 + [_P]),
     "nrslam_joint_shard": (_I, [_I, _I, _P, _I] + [_P] * 14 + [_I] * 6
                            + [_P]),
+    "nrslam_ba_shard_layout": (_I, [_I] * 5 + [_P]),
+    "nrslam_ba_shard": (_I, [_I, _I, _P, _I] + [_P] * 14 + [_I] * 7
+                        + [_P]),
 }
 
 

@@ -14,8 +14,9 @@ trees (``convert.to_numpy`` of port structures). A rank that fails ends
 the world and its traceback is raised in the caller.
 
 ``dryrun_multichip(n, device)`` spawns n ranks and runs, on each, the
-sharded non-keyframe (tracking and mapping), a keyframe with its BA, the
-sharded pose normal equations and the keyframe-sharded BA at K = n.
+sharded non-keyframe (tracking and mapping), a keyframe with its
+partitioned window BA, the sharded pose normal equations and the
+keyframe-sharded BA at K = n.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -36,8 +38,8 @@ import torch.multiprocessing as mp
 
 from nrslam_tpu_torch import bench_problem, convert
 from nrslam_tpu_torch.geometry import cameras, se3
-from nrslam_tpu_torch.parallel import (ba_shard, multihost, sharding,
-                                       solve_shard)
+from nrslam_tpu_torch.parallel import (ba_points, ba_shard, multihost,
+                                       sharding, solve_shard, tracking_shard)
 from nrslam_tpu_torch.parallel.tracking_shard import frame_step_sharded
 from nrslam_tpu_torch.utils.device import resolve
 from nrslam_tpu_torch.utils.tree import tree_map
@@ -76,7 +78,8 @@ def _launch_counts():
            "pose_deformation": pdc.launches,
            "bundle_adjustment": bac.launches}
     for route, mod in (("pose_only_shard", pose_only_cuda),
-                       ("pose_deformation_shard", pdc)):
+                       ("pose_deformation_shard", pdc),
+                       ("bundle_adjustment_shard", bac)):
         out[f"{route}.calls"] = mod.shard_calls
         out.update({f"{route}.{k}": v for k, v in mod.shard_launches.items()})
     return out
@@ -84,20 +87,22 @@ def _launch_counts():
 
 def frame_launches(keyframes) -> dict:
     """``_launch_counts`` that ``len(keyframes)`` sharded frames make on
-    each rank: one sharded pose-only and one sharded joint call a frame
-    with their phase launches, no whole-solver pose-only or joint launch,
-    the BA kernel once a keyframe."""
+    each rank: one partitioned pose-only and one partitioned joint call a
+    frame and one partitioned window BA a keyframe, with their phase
+    launches; no whole-solver pose-only, joint or BA launch."""
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
-    n = len(keyframes)
-    want = {"pose_only": 0, "pose_deformation": 0,
-            "bundle_adjustment": sum(map(bool, keyframes)),
-            "pose_only_shard.calls": n, "pose_deformation_shard.calls": n}
-    for route, mod in (("pose_only_shard", pose_only_cuda),
-                       ("pose_deformation_shard", pdc)):
-        want.update({f"{route}.{k}": n * v
-                     for k, v in mod.shard_phase_launches().items()})
+    n, n_kf = len(keyframes), sum(map(bool, keyframes))
+    want = {"pose_only": 0, "pose_deformation": 0, "bundle_adjustment": 0,
+            "pose_only_shard.calls": n, "pose_deformation_shard.calls": n,
+            "bundle_adjustment_shard.calls": n_kf}
+    for route, calls, launches in (
+            ("pose_only_shard", n, pose_only_cuda.shard_phase_launches()),
+            ("pose_deformation_shard", n, pdc.shard_phase_launches()),
+            ("bundle_adjustment_shard", n_kf, bac.shard_phase_launches())):
+        want.update({f"{route}.{k}": calls * v for k, v in launches.items()})
     return want
 
 
@@ -145,6 +150,29 @@ def sharded_solves(mesh, cam, T0, X, obs, valid, pairs, scale):
 
 
 @task
+def points_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
+    """The window BA partitioned over the ranks' point blocks
+    (``ba_points``) from a whole numpy window: the rank takes its block of
+    the observations. Returns (poses, the whole solved copies, the
+    collectives' count and bytes, the phase-kernel launches, ms)."""
+    cam, poses0, L0, problem = to_device((cam, poses0, L0, problem),
+                                         mesh.device)
+    problem = problem._replace(obs=sharding.local_block(mesh, problem.obs,
+                                                        1))
+    before = _launch_counts()
+    _sync(mesh.device)
+    sharding.traffic.reset()
+    t0 = time.perf_counter()
+    poses, L = ba_points.local_deformable_ba_sharded(
+        mesh, cam, poses0, L0, problem, n_iters, cg_iters)
+    _sync(mesh.device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    return convert.to_numpy((poses, L)) + (
+        sharding.traffic.count, sharding.traffic.bytes, launches, ms)
+
+
+@task
 def kf_sharded_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
     """The keyframe-sharded BA of a whole window; returns (poses, L, ms)."""
     cam, poses0, L0, problem = to_device((cam, poses0, L0, problem),
@@ -181,12 +209,13 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
     before = _launch_counts()
     out = {k: [] for k in ("n_tracked_3d", "lost", "ms", "bytes",
                            "payloads", "max_payload", "graph_shapes",
-                           "solve_bytes", "solve_payloads")}
+                           "solve_bytes", "solve_payloads", "gather_bytes")}
     for frame, kf in zip(frames, keyframes):
         gray = multihost.replicate_frame(mesh, frame)
         _sync(mesh.device)
         sharding.traffic.reset()
         solve_shard.traffic.reset()
+        tracking_shard.traffic.reset()
         t0 = time.perf_counter()
         local, res = frame_step_sharded(mesh, local, gray, mask, cam, config,
                                         bool(kf))
@@ -197,6 +226,7 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
         out["max_payload"].append(sharding.traffic.max_elements)
         out["solve_bytes"].append(solve_shard.traffic.bytes)
         out["solve_payloads"].append(solve_shard.traffic.count)
+        out["gather_bytes"].append(tracking_shard.traffic.bytes)
         out["graph_shapes"].append(sorted({tuple(x.shape)
                                            for x in local.graph[:-1]}))
         out["n_tracked_3d"].append(int(res.n_tracked_3d))
@@ -221,10 +251,30 @@ def sharded_frames(mesh, state, frames, mask, cam, config, keyframes,
     (each rank feeds every frame and takes its slots and graph rows of the
     state). Returns ``_run_frames``'s record."""
     cam = to_device(cam, mesh.device)
-    local = sharding.shard_state(to_device(state, mesh.device), mesh,
-                                 config.max_points)
+    local = tracking_shard.shard_state(to_device(state, mesh.device), mesh,
+                                       config)
     return _run_frames(mesh, local, frames, mask, cam, config, keyframes,
                        gather_graph)
+
+
+@task
+def frame_placement_round_trip(mesh, state, config, image_shape):
+    """The whole numpy ``state`` placed as the sharded frame holds it
+    (``tracking_shard.shard_state``) and gathered back
+    (``sharding.unshard_state`` with ``tracking_shard.state_axes``).
+    Returns (the gathered state, the rank's shapes of a few leaves)."""
+    local = tracking_shard.shard_state(to_device(state, mesh.device), mesh,
+                                       config)
+    shapes = {"positions": local.positions.shape,
+              "graph.weight": local.graph.weight.shape,
+              "kf_positions": local.kf_positions.shape,
+              "kf_obs": local.kf_obs.shape,
+              "tb_positions": local.tb_positions.shape,
+              "tb_tracked": local.tb_tracked.shape,
+              "refs.patch": local.refs.patch.shape}
+    whole = sharding.unshard_state(
+        local, mesh, tracking_shard.state_axes(config, tuple(image_shape)))
+    return convert.to_numpy(whole), {k: tuple(v) for k, v in shapes.items()}
 
 
 @task
@@ -237,8 +287,8 @@ def bench_frames(mesh, max_points, keyframes, gather_graph=False):
     state, frames, mask, cam, config = bench_problem.build_bench_problem(
         max_points, device=mesh.device,
         rows=sharding.MeshRows(mesh, max_points))
-    local = sharding.shard_state(state._replace(graph=None), mesh,
-                                 max_points)._replace(graph=state.graph)
+    local = tracking_shard.shard_state(state._replace(graph=None), mesh,
+                                       config)._replace(graph=state.graph)
     frames = [f.cpu().numpy() for f in frames[:len(keyframes)]]
     del state
     return _run_frames(mesh, local, frames, mask.cpu().numpy(), cam, config,
@@ -349,7 +399,7 @@ def dryrun(mesh):
     n = mesh.world_size
     P = max(64, n * 8)
     state, gray, mask, cam, config = small_problem(P, mesh.device)
-    local = sharding.shard_state(state, mesh, P)
+    local = tracking_shard.shard_state(state, mesh, config)
     mapped, res = frame_step_sharded(mesh, local, gray, mask, cam, config,
                                      False)
     kf_state, kf_res = frame_step_sharded(mesh, mapped, gray, mask, cam,
@@ -442,8 +492,120 @@ def report_solves(tag: str, r: dict, n: int, tol_pose: float,
                              "gates")
 
 
+def points_ba_against_whole(world, device, n_valid: int = 5,
+                            P: int = 768) -> dict:
+    """``points_ba`` on the world's ranks on the keyframe's window
+    (``bench_problem.ba_problem``: pinhole, W=5, ``P`` points, ``n_valid``
+    of 5 slots valid, Config().ba_cg_iters) against the
+    whole-solver BA (the BA kernel on the card, the plain BA elsewhere),
+    the plain BA and the partitioned BA run in this process as one rank
+    (bit for bit: P / n is whole chunks of 64 points). Returns the largest
+    pose and observed-copy differences, whether every rank holds the one
+    process's bits, rank 0's collectives, bytes, launches and ms beside the
+    whole-solver's (host clock, synchronised)."""
+    from nrslam_tpu_torch.slam.state import Config
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+
+    device = torch.device(device)
+    cg = Config().ba_cg_iters
+    cam, poses0, L0, prob = bench_problem.ba_problem(n_valid=n_valid,
+                                                     device=device, P=P)
+    outs = world.run("points_ba", *convert.to_numpy((cam, poses0, L0, prob)),
+                     5, cg)
+    one = ba_points.local_deformable_ba_sharded(
+        sharding.Mesh(0, 1, None, device), cam, poses0, L0, prob, 5, cg)
+    _sync(device)
+    t0 = time.perf_counter()
+    whole = ba.local_deformable_ba(cam, poses0, L0, prob, 5, cg)
+    _sync(device)
+    ms_w = 1e3 * (time.perf_counter() - t0)
+    plain = ba.local_deformable_ba_plain(cam, poses0, L0, prob, 5, cg)
+    live = prob.kf_valid.cpu().numpy()
+    seen = (prob.obs_valid & prob.kf_valid[:, None]).cpu().numpy()
+    poses, L, count, nb, launches, ms = outs[0]
+
+    def diff(ref):
+        q, q_ref = poses.q[live], ref[0].q.cpu().numpy()[live]
+        d_q = np.minimum(np.linalg.norm(q - q_ref, axis=-1),
+                         np.linalg.norm(q + q_ref, axis=-1)).max()
+        d_t = np.linalg.norm(poses.t - ref[0].t.cpu().numpy(),
+                             axis=-1)[live].max()
+        d_L = np.linalg.norm(L - ref[1].cpu().numpy(), axis=-1)[seen].max()
+        return max(float(d_q), float(d_t)), float(d_L)
+
+    one_np = convert.to_numpy(one)
+    return {"whole": diff(whole), "plain": diff(plain),
+            "same": all(np.array_equal(o[1], one_np[1])
+                        and np.array_equal(o[0].t, one_np[0].t)
+                        and np.array_equal(o[0].q, one_np[0].q)
+                        for o in outs),
+            "count": count, "bytes": nb, "launches": launches, "ms": ms,
+            "whole_ms": ms_w, "W": L0.shape[0], "P": L0.shape[1],
+            "n_valid": n_valid, "cuda": device.type == "cuda"}
+
+
+def report_points_ba(tag: str, r: dict, n: int, tol: float):
+    """Prints ``points_ba_against_whole``'s readings ``r`` for n ranks as a
+    ``tag`` line, and raises AssertionError unless every rank holds the one
+    process's bits, the differences from the whole-solver and plain BA
+    are below ``tol``, rank 0 made exactly the phase launches of one call
+    on the card (``shard_phase_launches``) and none elsewhere, and no
+    whole-solver BA launch."""
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+
+    got = {k.split(".")[1]: v for k, v in r["launches"].items()
+           if k.startswith("bundle_adjustment_shard.")
+           and not k.endswith(".calls")}
+    want = (bac.shard_phase_launches() if r["cuda"]
+            else dict.fromkeys(got, 0))
+    print(f"{tag} window BA partitioned over {n} ranks' point blocks, "
+          f"pinhole W={r['W']} P={r['P']} {r['n_valid']}/{r['W']} valid: "
+          f"against the whole-solver BA pose "
+          f"{r['whole'][0]:.3e} copies {r['whole'][1]:.3e}, against plain "
+          f"pose {r['plain'][0]:.3e} copies {r['plain'][1]:.3e} (tol "
+          f"{tol:.1e}); every rank the bits of one process: {r['same']}; "
+          f"rank 0: {r['count']} collectives, {r['bytes']} bytes, "
+          f"{r['ms']:.2f} ms (the whole-solver BA in this process "
+          f"{r['whole_ms']:.2f} ms); phase launches {got}")
+    if not (r["same"] and max(r["whole"] + r["plain"]) < tol
+            and got == want and r["launches"]["bundle_adjustment"] == 0):
+        raise AssertionError(f"{tag} partitioned window BA outside the "
+                             "gates")
+
+
 # The JAX tests' gates of a sharded frame against one process.
 FRAME_GATES = {"dt": 1e-4, "dpos": 1e-3, "agree": 0.98, "dgraph": 1e-3}
+
+# The sharded frame's runs on the card (``chip_smoke.py [parallel]``,
+# ``multicard``): P and the keyframe flags of the bench problem's frames.
+# The problem starts with one keyframe, so at P=768 the second keyframe
+# has a window of 3 valid keyframes and its BA's result is applied. (At
+# P=4096 with keyframes at frames 2 and 3 the partitioned solves flip one
+# slot's status at frame 3 against the plain drivers, a summation-order
+# difference: ``structure_against_one_process`` holds that run's own work
+# bit for bit instead, PERF.md §6.)
+FRAME_RUNS = ((768, (False, False, True, False, True, False)),
+              (4096, (False, False, True)))
+
+# Predicted before the first sharded-frame run on the card (PERF.md §6),
+# for 4 ranks, and gated exactly (``report_frames``): rank 0's collective
+# payload bytes per frame (non-keyframe, keyframe), the frame's gathers
+# plus the partitioned solves' share (``solve_bytes``, ``solve_payloads``:
+# their schedule's payloads, tests/torch_parity.py ``solve_floats`` and
+# ``ba_floats``). A non-keyframe gathers no ring: the design that gathered
+# both rings every frame moved 2,937,696 / 15,658,144 B, 608 P more (the
+# rings, K (8 + 1 + 12) + T (8 + 1 + 1 + 12) B a slot) and 48 more (three
+# checksum leaves). Peak: each rank's and the single process's
+# max_memory_allocated over the frames at P = 4096, MB (printed beside
+# the readings, not gated).
+PREDICTED = {768: {"bytes": (2_470_704, 6_671_696),
+                   "solve_bytes": (2_205_152, 6_289_536),
+                   "solve_payloads": (477, 648)},
+             4096: {"bytes": (13_167_728, 35_580_160),
+                    "solve_bytes": (11_760_672, 33_543_984),
+                    "solve_payloads": (477, 648),
+                    "rank_peak_mb": (485, 510),
+                    "single_peak_mb": (1245, 1260)}}
 
 
 def _single_frames(device, max_points: int, keyframes):
@@ -474,22 +636,44 @@ def _single_frames(device, max_points: int, keyframes):
 
 
 @contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms`` on (warnings only where an op
+    has no deterministic version), restored afterwards."""
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+
+
+@contextlib.contextmanager
 def _plain_solves():
-    """The pose-only and joint solves of this process's frames run by their
-    plain drivers (on the card too) instead of the whole-solver kernels;
-    the BA keeps its kernel."""
+    """The pose-only and joint solves and the window BA of this process's
+    frames run by their plain drivers (on the card too) instead of the
+    whole-solver kernels, ``_deterministic``: on the card the plain
+    drivers' ``index_add_`` sums in a different order on every call, which
+    moves a point whose chi2 sits at a gate's threshold from one run to the
+    next (P=4096: 2 of 3 runs flipped one point, PERF.md §6)."""
+    from nrslam_tpu_torch.solver import bundle_adjustment as ba
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation as pd
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
 
     swaps = ((pose_only_cuda, "camera_pose_optimization_cuda",
               pose_only.camera_pose_optimization_plain),
-             (pdc, "pose_deformation_cuda", pd.pose_deformation_plain))
+             (pdc, "pose_deformation_cuda", pd.pose_deformation_plain),
+             (bac, "local_deformable_ba_cuda", ba.local_deformable_ba_plain))
     saved = [getattr(m, name) for m, name, _ in swaps]
     for m, name, plain in swaps:
         setattr(m, name, plain)
     try:
-        yield
+        with _deterministic():
+            yield
     finally:
         for (m, name, _), fn in zip(swaps, saved):
             setattr(m, name, fn)
@@ -497,11 +681,24 @@ def _plain_solves():
 
 def _differences(got, ref) -> dict:
     """FRAME_GATES' readings of the gathered state ``got`` (numpy) against
-    the state ``ref``, and the points whose positions differ by > 1e-3."""
+    the state ``ref``: the pose, the positions and statuses, and the
+    keyframe ring that the window BA writes (validity equal; over the valid
+    keyframes the largest pose difference, q up to sign or t, and copy
+    difference); and the points whose positions differ by > 1e-3."""
     pos = ref.positions.cpu().numpy()
+    live = ref.kf_valid.cpu().numpy()
+    q, q_ref = got.kf_pose.q[live], ref.kf_pose.q.cpu().numpy()[live]
+    d_q = np.minimum(np.linalg.norm(q - q_ref, axis=-1),
+                     np.linalg.norm(q + q_ref, axis=-1))
+    d_t = abs(got.kf_pose.t - ref.kf_pose.t.cpu().numpy())[live]
+    d_L = abs(got.kf_positions - ref.kf_positions.cpu().numpy())[live]
     return {"dt": float(abs(got.Tcw.t - ref.Tcw.t.cpu().numpy()).max()),
             "dpos": float(abs(got.positions - pos).max()),
             "agree": float(np.mean(got.status == ref.status.cpu().numpy())),
+            "kf_valid_equal": bool(np.array_equal(got.kf_valid, live)),
+            "dkf_pose": float(max(d_q.max(initial=0.0),
+                                  d_t.max(initial=0.0))),
+            "dkf_pos": float(d_L.max(initial=0.0)),
             "moved": int(np.sum(np.linalg.norm(got.positions - pos, axis=-1)
                                 > 1e-3))}
 
@@ -510,26 +707,35 @@ def frames_against_single(world, device, max_points: int, keyframes,
                           gather_graph: bool) -> dict:
     """``bench_frames`` on the world's ranks against one process on the
     same seeded problem on ``device``: ``system.frame_step`` with the
-    pose-only and joint solves by the plain drivers (every kernel's oracle;
-    the gates), with the whole-solver kernels (``system.frame_step`` as it
-    runs; readings), and ``frame_step_sharded`` as one rank (bit for bit).
+    pose-only and joint solves and the window BA by the plain drivers
+    (every kernel's oracle, ``_plain_solves``; the gates), with the
+    whole-solver kernels (``system.frame_step`` as it runs; readings), and
+    ``frame_step_sharded`` as one rank (bit for bit).
     Returns the readings (n_tracked_3d, |dTcw.t|, max|dpos|, the share of
-    equal statuses and the points moved by > 1e-3 against each, with
+    equal statuses, the keyframe ring's validity, poses and copies
+    (``_differences``) and the points moved by > 1e-3 against each, the
+    number of valid keyframes at the end (the window BA's result is used
+    from 3 on: ``ba_applied``), with
     ``gather_graph`` the largest graph difference, launches per rank, ms
-    per frame, collective bytes per frame and the sharded solves' share of
-    them, peak allocated bytes per rank and of the single process with the
-    kernels) and ``ok``: against the plain drivers every gate of
-    ``FRAME_GATES`` and n_tracked_3d equal; launches as the frames dictate
-    (``frame_launches``: the sharded pose-only and joint phase kernels once
-    a frame, no whole-solver pose-only or joint kernel, BA once a keyframe)
-    on every rank, equal collective bytes on every rank, no payload of ``P
-    * P / n`` elements or more, and the ranks' frames bit for bit those of
-    the one-rank run (``_against_one_process``). The partitioned solves sum
-    in another order than one process, so against it the gates are
-    tolerances, not bit equality; a point whose chi2 or flow sits at a
-    gate's threshold can flip between any two summation orders (PERF.md
-    §6: at P=4096 the whole-solver frame flips one point against the
-    plain drivers, which the sharded frame matches)."""
+    per frame, collective bytes per frame, the partitioned solves' share of
+    them and the state gather's, peak allocated bytes per rank and of the
+    single process with the kernels) and ``ok``: against the plain drivers
+    every gate of ``FRAME_GATES`` (the keyframe ring's poses under "dt",
+    its copies under "dpos", its validity equal) and n_tracked_3d equal;
+    launches as the
+    frames dictate (``frame_launches``: the partitioned pose-only and joint
+    phase kernels once a frame and the window BA's once a keyframe, no
+    whole-solver kernel) on every rank, equal collective bytes on every
+    rank, no payload of ``P * P / n`` elements or more, the ranks'
+    frames bit for bit those of the one-rank run
+    (``_against_one_process``), and the sharded frame's own work bit for
+    bit that of one process (``structure_against_one_process``). The
+    partitioned solves sum in another order than one process, so against
+    it the gates are tolerances, not bit equality; a point whose chi2 or
+    flow sits at a gate's threshold can flip between any two summation
+    orders (PERF.md §6: at P=4096 the whole-solver frame flips one point
+    against the deterministic plain drivers, which the sharded frame
+    matches on ``FRAME_RUNS``' frames)."""
     device = torch.device(device)
     outs = world.run("bench_frames", max_points, keyframes, gather_graph)
     whole, whole_n3d, ms, (peak, resident) = _single_frames(
@@ -537,9 +743,13 @@ def frames_against_single(world, device, max_points: int, keyframes,
     with _plain_solves():
         s, n3d, _, _ = _single_frames(device, max_points, keyframes)
     same = _against_one_process(outs[0], device, max_points, keyframes)
+    structure = structure_against_one_process(device, max_points,
+                                              keyframes)
     got = outs[0]["state"]
     r = {"n_tracked_3d": outs[0]["n_tracked_3d"], "single_n_tracked_3d": n3d,
          "whole_n_tracked_3d": whole_n3d, "same_as_one_process": same,
+         "ba_applied": int(got.kf_valid.sum()) >= 3,
+         "structure_exact": structure["exact"],
          **_differences(got, s),
          "whole": _differences(got, whole),
          "launches": [o["launches"] for o in outs],
@@ -548,6 +758,7 @@ def frames_against_single(world, device, max_points: int, keyframes,
          "payloads": outs[0]["payloads"],
          "solve_bytes": outs[0]["solve_bytes"],
          "solve_payloads": outs[0]["solve_payloads"],
+         "gather_bytes": outs[0]["gather_bytes"],
          "max_payload": max(max(o["max_payload"]) for o in outs),
          "graph_shapes": outs[0]["graph_shapes"],
          "peak_bytes": [o["peak_bytes"] for o in outs],
@@ -556,8 +767,11 @@ def frames_against_single(world, device, max_points: int, keyframes,
     want = frame_launches(keyframes)
     r["want_launches"] = want
     g = FRAME_GATES
-    r["ok"] = (same and r["n_tracked_3d"] == n3d and r["dt"] <= g["dt"]
+    r["ok"] = (same and structure["exact"] and r["n_tracked_3d"] == n3d
+               and r["dt"] <= g["dt"]
                and r["dpos"] <= g["dpos"] and r["agree"] >= g["agree"]
+               and r["kf_valid_equal"] and r["dkf_pose"] <= g["dt"]
+               and r["dkf_pos"] <= g["dpos"]
                and all(x == want for x in r["launches"])
                and all(b == r["bytes"][0] for b in r["bytes"])
                and r["max_payload"] < max_points * max_points // world.n)
@@ -574,13 +788,10 @@ def frames_against_single(world, device, max_points: int, keyframes,
     return r
 
 
-def _against_one_process(out, device, max_points: int, keyframes) -> bool:
-    """Whether the ranks' record ``out`` (rank 0's ``_run_frames``) equals,
-    bit for bit, ``frame_step_sharded`` run on the same problem in this
-    process as a world of one rank (no process group): the same
-    n_tracked_3d and LOST flags, and every leaf of the final state that
-    ``out`` holds. The partitioned solves sum by chunk of points, so the
-    number of ranks does not change a bit."""
+def one_rank_frames(device, max_points: int, keyframes):
+    """``frame_step_sharded`` on the seeded problem in this process as a
+    world of one rank (no process group): (final state as numpy,
+    n_tracked_3d and LOST flag per frame)."""
     s, frames, mask, cam, config = bench_problem.build_bench_problem(
         max_points, device=device)
     mesh = sharding.Mesh(0, 1, None, s.positions.device)
@@ -589,10 +800,12 @@ def _against_one_process(out, device, max_points: int, keyframes) -> bool:
         s, res = frame_step_sharded(mesh, s, f, mask, cam, config, bool(kf))
         n3d.append(int(res.n_tracked_3d))
         lost.append(bool(res.lost))
-    got = out["state"]
-    mine = convert.to_numpy(s._replace(refs=None))
-    if got.graph is None:
-        mine = mine._replace(graph=None)
+    return convert.to_numpy(s), n3d, lost
+
+
+def _same_leaves(got, mine) -> bool:
+    """Whether every leaf of the numpy tree ``got`` equals ``mine``'s bit
+    for bit."""
     leaves = []
 
     def pair(a, b):
@@ -600,7 +813,74 @@ def _against_one_process(out, device, max_points: int, keyframes) -> bool:
         return a
 
     tree_map(pair, got, mine)
-    return n3d == out["n_tracked_3d"] and lost == out["lost"] and all(leaves)
+    return all(leaves)
+
+
+def _against_one_process(out, device, max_points: int, keyframes) -> bool:
+    """Whether the ranks' record ``out`` (rank 0's ``_run_frames``) equals,
+    bit for bit, ``one_rank_frames``: the same n_tracked_3d and LOST
+    flags, and every leaf of the final state that ``out`` holds. The
+    partitioned solves sum by chunk of points, so the number of ranks does
+    not change a bit."""
+    mine, n3d, lost = one_rank_frames(device, max_points, keyframes)
+    got = out["state"]
+    mine = mine._replace(refs=None)
+    if got.graph is None:
+        mine = mine._replace(graph=None)
+    return (n3d == out["n_tracked_3d"] and lost == out["lost"]
+            and _same_leaves(got, mine))
+
+
+@contextlib.contextmanager
+def _whole_solves_in_sharded_frame():
+    """``frame_step_sharded`` with ``tracking.WHOLE``'s solves in place of
+    the partitioned ones (``solve_shard.mesh_solves``); right on one rank
+    only, whose ring columns are all the slots."""
+    from nrslam_tpu_torch.slam import tracking
+
+    saved = solve_shard.mesh_solves
+    solve_shard.mesh_solves = lambda mesh: tracking.WHOLE
+    try:
+        yield
+    finally:
+        solve_shard.mesh_solves = saved
+
+
+def structure_against_one_process(device, max_points: int,
+                                  keyframes) -> dict:
+    """The sharded frame's own work (placement, gathers, keyframe ring
+    columns, the window BA's write-back and the map refresh) apart from
+    its solves: ``frame_step_sharded`` as one rank with the solves of one
+    process (``_whole_solves_in_sharded_frame``: the whole-solver kernels
+    on the card) against ``system.frame_step``, both ``_deterministic``.
+    Returns ``exact`` (every leaf of the final state and n_tracked_3d of
+    every frame bit for bit), n_tracked_3d and ``ba_applied`` (a window of
+    3 valid keyframes or more at the end)."""
+    device = torch.device(device)
+    with _deterministic():
+        whole, n3d, _, _ = _single_frames(device, max_points, keyframes)
+        with _whole_solves_in_sharded_frame():
+            mine, mine_n3d, _ = one_rank_frames(device, max_points,
+                                                keyframes)
+    return {"exact": (mine_n3d == n3d
+                      and _same_leaves(mine, convert.to_numpy(whole))),
+            "n_tracked_3d": n3d,
+            "ba_applied": int(mine.kf_valid.sum()) >= 3, "P": max_points,
+            "keyframes": [i + 1 for i, k in enumerate(keyframes) if k]}
+
+
+def report_structure(tag: str, r: dict):
+    """Prints ``structure_against_one_process``'s readings ``r`` as a ``tag``
+    line, and raises AssertionError unless the frames are bit for bit
+    those of one process and a window BA was applied."""
+    print(f"{tag} sharded frame P={r['P']} (keyframes at frames "
+          f"{r['keyframes']}) as one rank with one process's solves, "
+          f"against system.frame_step: every leaf of the "
+          f"state and n_tracked_3d {r['n_tracked_3d']} bit for bit: "
+          f"{r['exact']}; window BA applied: {r['ba_applied']}")
+    if not (r["exact"] and r["ba_applied"]):
+        raise AssertionError(f"{tag} sharded frame P={r['P']}: its own work "
+                             "differs from one process")
 
 
 def ba_against_plain(outs, cam, poses0, L0, prob, plain) -> dict:
@@ -647,31 +927,49 @@ def report_ba(tag: str, label: str, r: dict, n: int, L0, prob):
         raise AssertionError(f"{tag} {label} outside the gates")
 
 
-def whole_gather_frame_bytes(config, image_shape) -> int:
-    """Each rank's collective payload bytes for one frame of the sharded
-    frame that gathers the whole state (the design before the graph was
-    row-sharded), worked out from its gathers: every point-axis leaf of
-    the state but the KLT references, the six [P, P] graph leaves included
-    (bool as uint8), once; then the keypoints and statuses after point
-    reuse; then the checksum compare ([2, leaves] int64)."""
-    from nrslam_tpu_torch.parallel.tracking_shard import state_axes
-    from nrslam_tpu_torch.slam import state as state_mod
-
-    full = state_mod.empty_state(config, image_shape, "meta")._replace(
-        refs=None)
-    axes = state_axes(config, image_shape)._replace(refs=None)
-    sizes, leaves = [], []
+def _leaf_bytes(tree, axes) -> int:
+    """The payload bytes of gathering every leaf of ``tree`` whose ``axes``
+    entry is not None (bool travels as uint8)."""
+    sizes = []
 
     def count(x, d):
-        leaves.append(1)
         if d is not None:
             sizes.append(x.numel() * (1 if x.dtype == torch.bool
                                       else x.element_size()))
         return x
 
-    tree_map(count, full, axes)
+    tree_map(count, tree, axes)
+    return sum(sizes)
+
+
+def whole_gather_frame_bytes(config, image_shape) -> int:
+    """Each rank's collective payload bytes for one frame of the sharded
+    frame that gathers the whole state (the design before the graph was
+    row-sharded), worked out from its gathers: every point-axis leaf of
+    the state but the KLT references (``sharding.point_axes``), the six
+    [P, P] graph leaves and both rings included, once; then the keypoints
+    and statuses after point reuse; then the checksum compare ([2, leaves]
+    int64)."""
+    from nrslam_tpu_torch.slam import state as state_mod
+
+    full = state_mod.empty_state(config, image_shape, "meta")._replace(
+        refs=None)
+    leaves = []
+    tree_map(lambda x: leaves.append(x), full)
     P = config.max_points
-    return sum(sizes) + P * (2 * 4 + 4) + 2 * len(leaves) * 8
+    return (_leaf_bytes(full, sharding.point_axes(full, P))
+            + P * (2 * 4 + 4) + 2 * len(leaves) * 8)
+
+
+def frame_gather_bytes(config, image_shape) -> int:
+    """Each rank's payload bytes of the sharded frame's gather of its state
+    at the start of every frame (``tracking_shard.gather_axes``: the [P]
+    arrays; no ring, graph row or KLT reference): 30 bytes a slot."""
+    from nrslam_tpu_torch.slam import state as state_mod
+
+    full = state_mod.empty_state(config, image_shape, "meta")
+    return _leaf_bytes(full._replace(refs=None, graph=None),
+                       tracking_shard.gather_axes(config, image_shape))
 
 
 def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
@@ -679,12 +977,26 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
     """Prints ``frames_against_single``'s readings ``r`` as ``tag`` lines
     (the frames, the collective bytes beside the whole-state gather's and
     ``predicted``'s, the peak memory on the card), and raises
-    AssertionError outside its gates."""
+    AssertionError outside its gates, where a run with two keyframes or
+    more did not apply a window BA (the bench problem starts with one
+    keyframe, so its second keyframe's window holds 3), or where
+    ``predicted`` (a ``PREDICTED`` entry) is given and rank 0's collective
+    bytes, or the partitioned solves' bytes or collectives, of a frame
+    differ from it."""
     from nrslam_tpu_torch.slam.state import Config
 
     P, n, mb = max_points, len(r["launches"]), 1e6
     same = r["launches"].count(r["launches"][0]) == n
     pred = predicted or {}
+    off = []
+    for key, got in (("bytes", r["bytes"][0]),
+                     ("solve_bytes", r["solve_bytes"]),
+                     ("solve_payloads", r["solve_payloads"])):
+        if key in pred:
+            want = [pred[key][int(bool(kf))] for kf in keyframes]
+            print(f"{tag} P={P} {key} per frame {got}, predicted {want}")
+            if list(got) != want:
+                off.append(key)
     kf_at = [i + 1 for i, k in enumerate(keyframes) if k]
     graph = (f", graph gathered once at the end: edges and bad flags "
              f"equal, max|d| distances and weights {r['dgraph']:.2e} (gate "
@@ -696,8 +1008,12 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
           f"n_tracked_3d {r['n_tracked_3d']} (single process "
           f"{r['single_n_tracked_3d']}), |dTcw.t| {r['dt']:.2e} (gate 1e-4), "
           f"max|dpos| {r['dpos']:.2e} (gate 1e-3), statuses equal on "
-          f"{r['agree']:.4f} (gate 0.98){graph}, positions moved by more "
-          f"than 1e-3: {r['moved']}; against one process with the "
+          f"{r['agree']:.4f} (gate 0.98){graph}, the keyframe ring: "
+          f"validity equal {r['kf_valid_equal']}, poses "
+          f"{r['dkf_pose']:.2e} (gate 1e-4), copies {r['dkf_pos']:.2e} "
+          f"(gate 1e-3), window BA applied {r['ba_applied']}; positions "
+          f"moved by more than 1e-3: {r['moved']}; against one process "
+          f"with the "
           f"whole-solver kernels (a reading): n_tracked_3d "
           f"{r['whole_n_tracked_3d']}, |dTcw.t| {w['dt']:.2e}, max|dpos| "
           f"{w['dpos']:.2e}, statuses equal on {w['agree']:.4f}, positions "
@@ -705,7 +1021,9 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
           f"checksum "
           f"equal to the others' on every frame; the same bits as this "
           f"process running the sharded frame as one rank: "
-          f"{r['same_as_one_process']}; launches per rank "
+          f"{r['same_as_one_process']}; its own work with one process's "
+          f"solves bit for bit one process's: {r['structure_exact']}; "
+          f"launches per rank "
           f"{r['launches'][0]} (all ranks "
           f"{'equal' if same else r['launches']}; wanted "
           f"{r['want_launches']}"
@@ -725,11 +1043,14 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
           f"({whole / max(r['bytes'][0]):.1f}x)"
           + (f"; predicted (non-keyframe, keyframe) {pred['bytes']}"
              if "bytes" in pred else ""))
-    print(f"{tag} P={P} the sharded pose-only and joint solves' share per "
-          f"frame per rank: {r['solve_payloads'][0]} collectives, "
-          f"{r['solve_bytes'][0]} bytes (frames {r['solve_bytes']})"
-          + (f"; predicted {pred['solve_bytes']} bytes"
-             if "solve_bytes" in pred else ""))
+    print(f"{tag} P={P} the partitioned solves' share per frame per rank "
+          f"(pose-only, joint; window BA on keyframes): collectives "
+          f"{r['solve_payloads']}, bytes {r['solve_bytes']}"
+          + (f"; predicted (non-keyframe, keyframe) {pred['solve_payloads']}"
+             f" collectives, {pred['solve_bytes']} bytes"
+             if "solve_bytes" in pred else "")
+          + f"; the state gather's {r['gather_bytes'][0]} bytes a frame (no "
+          f"ring)")
     if r["peak_bytes"][0] is not None:
         print(f"{tag} P={P} peak allocated over the frames "
               f"(max_memory_allocated) per rank "
@@ -740,6 +1061,10 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
               + (f"; predicted rank {pred['rank_peak_mb']}, single "
                  f"{pred['single_peak_mb']} MB" if "rank_peak_mb" in pred
                  else ""))
+    if off:
+        raise AssertionError(f"{tag} P={P} {off} differ from the prediction")
+    if sum(map(bool, keyframes)) >= 2 and not r["ba_applied"]:
+        raise AssertionError(f"{tag} P={P}: no window BA was applied")
     if not r["ok"]:
         raise AssertionError(f"{tag} sharded frame P={P} outside the gates")
 

@@ -10,16 +10,21 @@ on a host with at least N visible cards (N: every visible card, at least
 with the NCCL backend: rank r on card r), then runs the keyframe-sharded
 BA at K=8, P=768 (8 and 5 of 8 keyframes valid), the sharded pose-only
 and joint solves at P=768 on the rigid scene against the whole-solver
-kernels (pose 1e-5, flows 2e-4) and the row-sharded frame at 640x480 with
-256 new keypoints: P=768 for 6 frames (keyframe at frame 5) and P=4096 for
-3 (keyframe at frame 3), with ``dryrun``'s readings and gates
-(``report_ba``, ``report_solves``, ``report_frames``). Prints the cards' names and power
-limits first, and raises at the first check outside its gates. A
+kernels (pose 1e-5, flows 2e-4), the window BA partitioned over the
+ranks' point blocks at W=5, P=768 and 4096 against the whole-solver BA
+kernel (3e-5, bit for bit against one process) and the row-sharded frame
+at 640x480 with 256 new keypoints (``dryrun.FRAME_RUNS``: P=768 for 6
+frames, keyframes at frames 3 and 5, and P=4096 for 3, a keyframe at
+frame 3), with ``dryrun``'s readings and gates (``report_ba``,
+``report_solves``, ``report_points_ba``, ``report_frames``; with 4 ranks
+the bytes against ``dryrun.PREDICTED``). Prints the cards' names and
+power limits first, and raises at the first check outside its gates. A
 measurement on several cards; ``chip_smoke.py`` needs one.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 import time
@@ -34,6 +39,9 @@ from nrslam_tpu_torch.solver import bundle_adjustment as ba
 def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("multicard: no CUDA device")
+    # cuBLAS deterministic too in the plain-driver process
+    # (dryrun._plain_solves); read when the first cuBLAS handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     n = int(argv[0]) if argv else torch.cuda.device_count()
     if n < 2 or torch.cuda.device_count() < n:
         raise SystemExit(f"multicard: {n} ranks need {max(n, 2)} cards, "
@@ -63,11 +71,15 @@ def main(argv) -> int:
                 n, L0, prob)
         dryrun.report_solves("[multicard]", dryrun.solves_against_whole(
             world, dev, 0.0), n, 1e-5, 2e-4)
-        for P, kfs in ((768, [False] * 4 + [True, False]),
-                       (4096, [False, False, True])):
+        for P in (768, 4096):
+            dryrun.report_points_ba(
+                "[multicard]", dryrun.points_ba_against_whole(
+                    world, dev, 5, P), n, 3e-5)
+        for P, kfs in dryrun.FRAME_RUNS:
             r = dryrun.frames_against_single(world, dev, P, kfs,
                                              gather_graph=P <= 768)
-            dryrun.report_frames("[multicard]", f"{n} cards", r, P, kfs)
+            dryrun.report_frames("[multicard]", f"{n} cards", r, P, kfs,
+                                 dryrun.PREDICTED[P] if n == 4 else None)
     print("[multicard] ok")
     return 0
 

@@ -2,11 +2,13 @@
 ``torch.distributed`` process group (counterpart of
 nrslam_tpu/parallel/sharding.py).
 
-Each rank holds a contiguous block of ``P / n`` landmark slots of every
-array whose extent along some axis is ``max_points`` (the first such axis:
-``[P, P]`` graph matrices shard by rows, the keyframe and temporal rings
-``[K, P, ...]`` / ``[T, P, ...]`` along their point axis); everything else
-(poses, ring heads, scalars) is replicated. Eager PyTorch has no SPMD
+``shard_state`` gives each rank a contiguous block of ``P / n`` landmark
+slots of every array whose extent along some axis is ``max_points`` (the
+first such axis: ``[P, P]`` graph matrices shard by rows, the keyframe and
+temporal rings ``[K, P, ...]`` / ``[T, P, ...]`` along their point axis);
+everything else (poses, ring heads, scalars) is replicated. ``place``
+takes any other placement (the sharded frame keeps its temporal ring
+replicated: ``tracking_shard.state_axes``). Eager PyTorch has no SPMD
 partitioner, so the collectives are explicit (``tracking_shard``,
 ``ba_shard``); ``MeshRows`` is the rank's block of graph rows for the
 row-block graph, tracking and mapping functions (``slam.graph.Rows``).
@@ -199,6 +201,21 @@ class MeshRows(graph_mod.Rows):
     def gather(self, *blocks):
         return tuple(all_gather_rows(self.mesh, blocks))
 
+    def gather_columns(self, *blocks):
+        # One gather: each [W, m, ...] block as float32 rows [m, W * d],
+        # side by side; bool comes back as > 0.
+        W, m = blocks[0].shape[:2]
+        flat = [b.reshape(W, m, -1).to(torch.float32) for b in blocks]
+        widths = [f.shape[-1] for f in flat]
+        (whole,) = self.gather(torch.cat(flat, dim=-1).transpose(0, 1)
+                               .reshape(m, -1))
+        parts = torch.split(whole.reshape(whole.shape[0], W, -1)
+                            .transpose(0, 1), widths, dim=-1)
+        return tuple(
+            (p > 0 if b.dtype == torch.bool else p.to(b.dtype))
+            .reshape(W, -1, *b.shape[2:]).contiguous()
+            for p, b in zip(parts, blocks))
+
     def reduce_max(self, x):
         return all_reduce_max(self.mesh, x)[0]
 
@@ -219,7 +236,10 @@ def same_on_ranks(mesh: Mesh, x) -> bool:
 
 def digest(tree):
     """[L] int64: a checksum of the bytes of each tensor leaf of ``tree``,
-    each byte weighted by its position (so a permutation changes it)."""
+    each byte weighted by its position (so a permutation changes it). The
+    sharded frame compares it across ranks over the leaves every rank holds
+    the same (``same_on_ranks``): not the graph's rows nor the keyframe
+    ring's columns, which differ between ranks by design."""
     sums = []
 
     def add(x):
@@ -275,23 +295,29 @@ def local_block(mesh: Mesh, x, d: int):
     return x.narrow(d, b.start, b.stop - b.start)
 
 
-def shard_state(state, mesh: Mesh, max_points: int):
-    """This rank's contiguous ``P / n`` slots of every point-axis array of
-    ``state`` (any tree), on the mesh's device, copies that own their
-    memory (the whole arrays can be freed); the rest replicated."""
-    if max_points % mesh.world_size:
-        raise ValueError(f"max_points={max_points} does not split over "
-                         f"{mesh.world_size} ranks")
-
-    def place(x):
+def place(state, mesh: Mesh, axes):
+    """This rank's block of every tensor leaf of ``state`` (any tree) along
+    its ``axes`` entry (``rank_block``; None: replicated), on the mesh's
+    device, copies that own their memory (the whole arrays can be
+    freed)."""
+    def put(x, d):
         if not isinstance(x, torch.Tensor):
             return x
         x = x.to(mesh.device)
-        d = _spec_for(x.shape, max_points)
         return x if d is None else local_block(mesh, x, d).clone(
             memory_format=torch.contiguous_format)
 
-    return tree_map(place, state)
+    return tree_map(put, state, axes)
+
+
+def shard_state(state, mesh: Mesh, max_points: int):
+    """This rank's contiguous ``P / n`` slots of every point-axis array of
+    ``state`` (any tree; ``point_axes``), the rest replicated: the JAX
+    package's ``shard_state`` placement (``place``)."""
+    if max_points % mesh.world_size:
+        raise ValueError(f"max_points={max_points} does not split over "
+                         f"{mesh.world_size} ranks")
+    return place(state, mesh, point_axes(state, max_points))
 
 
 def point_axes(state, max_points: int):

@@ -60,8 +60,9 @@ _TRIU = torch.triu_indices(6, 6)
 # Points a chunk of the partial sums covers (csrc/*_shard.cu's kChunk).
 CHUNK = 64
 
-# The sharded solves' share of ``sharding.traffic`` (their collectives'
-# count and bytes) since its ``reset``.
+# The partitioned solves' share of ``sharding.traffic`` (the collectives'
+# count and bytes of ``mesh_solves``: pose-only, joint and window BA) since
+# its ``reset``.
 traffic = sharding.Traffic()
 
 
@@ -442,16 +443,20 @@ def pose_deformation_sharded(mesh: Mesh, cam: cameras.Camera, T0: se3.SE3,
 # ---------------------------------------------------------------------------
 
 def mesh_solves(mesh: Mesh) -> tracking.Solves:
-    """``tracking.Solves`` of the sharded frame: each solve takes the
-    rank's block (``sharding.local_block``) of the whole [P] arrays the
-    frame gathered and runs partitioned over the ranks."""
+    """``tracking.Solves`` of the sharded frame: the pose-only and joint
+    solves take the rank's block (``sharding.local_block``) of the whole
+    [P] arrays the frame gathered, the window BA the whole window with the
+    keyframe ring's columns of the observations (``ba_points``); each runs
+    partitioned over the ranks."""
+    from nrslam_tpu_torch.parallel import ba_points
+
     def block(x):
         return sharding.local_block(mesh, x, 0)
 
     def counted(fn):
-        def run(*args):
+        def run(*args, **kw):
             count, nbytes = sharding.traffic.count, sharding.traffic.bytes
-            out = fn(*args)
+            out = fn(*args, **kw)
             traffic.count += sharding.traffic.count - count
             traffic.bytes += sharding.traffic.bytes - nbytes
             return out
@@ -468,4 +473,4 @@ def mesh_solves(mesh: Mesh) -> tracking.Solves:
                                         block(obs), block(valid), pairs,
                                         scale)
 
-    return tracking.Solves(pose, joint)
+    return tracking.Solves(pose, joint, counted(ba_points.mesh_ba(mesh)))

@@ -60,6 +60,12 @@ class Rows:
         in process order (row results ``[R, ...]`` become ``[P, ...]``)."""
         return blocks
 
+    def gather_columns(self, *blocks):
+        """Every process's columns ``[W, m, ...]`` of each tensor (the
+        keyframe ring's columns of ``block``), concatenated in process order
+        along axis 1: ``[W, P, ...]``."""
+        return blocks
+
     def reduce_max(self, x):
         """``x``'s elementwise maximum over the processes."""
         return x

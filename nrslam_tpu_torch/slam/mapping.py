@@ -20,6 +20,7 @@ from nrslam_tpu_torch.geometry import cameras, se3, triangulation
 from nrslam_tpu_torch.ops import klt
 from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.slam import state as state_mod
+from nrslam_tpu_torch.slam import tracking
 from nrslam_tpu_torch.slam.state import Config, SlamState
 from nrslam_tpu_torch.solver import bundle_adjustment as ba
 from nrslam_tpu_torch.solver import deformable_triangulation as dt
@@ -199,10 +200,15 @@ def landmark_triangulation(state: SlamState, cam, config: Config,
 
 
 def keyframe_mapping(state: SlamState, cam, config: Config,
-                     rows: graph_mod.Rows = graph_mod.ALL) -> SlamState:
+                     rows: graph_mod.Rows = graph_mod.ALL,
+                     solves: tracking.Solves = tracking.WHOLE) -> SlamState:
     """Local deformable BA over the <= 5 newest keyframes plus the tracking
-    frame refresh (mapping.cc:36-58, 266-270)."""
+    frame refresh (mapping.cc:36-58, 266-270). The keyframe ring holds the
+    columns of ``rows.block``: the window's copies and masks are made whole
+    (``rows.gather_columns``), and ``solves.ba`` (the window BA) gets the
+    ring's columns of the observations."""
     W = config.ba_window
+    P = state.positions.shape[0]
     key = torch.where(state.kf_valid, state.kf_id,
                       torch.full_like(state.kf_id, -1))
     order = state_mod.argsort_stable(-key)[:W].flip(0)   # oldest -> newest
@@ -210,9 +216,9 @@ def keyframe_mapping(state: SlamState, cam, config: Config,
     n_win = torch.sum(win_valid.to(torch.int32))
 
     poses0 = se3.index(state.kf_pose, order)
-    L0 = state.kf_positions[order]
     obs = state.kf_keypoints[order]
-    obs_valid = state.kf_obs[order] & win_valid[:, None]
+    L0, obs_valid = rows.gather_columns(
+        state.kf_positions[order], state.kf_obs[order] & win_valid[:, None])
 
     eligible = torch.any(obs_valid, dim=0)
     nbr_idx, nbr_w, nbr_d0, nbr_valid = rows.gather(
@@ -220,12 +226,12 @@ def keyframe_mapping(state: SlamState, cam, config: Config,
                                    config.regularizers_per_point))
     pairs = pd.pairs_from_neighbors(nbr_idx, nbr_w, nbr_d0,
                                     nbr_valid & eligible[:, None])
-    pairs = pd.compact_pairs(pairs, L0.shape[1], eligible)
+    pairs = pd.compact_pairs(pairs, P, eligible)
 
     problem = ba.BAProblem(obs=obs, obs_valid=obs_valid, kf_valid=win_valid,
                            pairs=pairs, scale=state.scale)
-    poses1, L1 = ba.local_deformable_ba(cam, poses0, L0, problem,
-                                        cg_iters=config.ba_cg_iters)
+    poses1, L1 = solves.ba(cam, poses0, L0, problem,
+                           cg_iters=config.ba_cg_iters)
 
     run = n_win >= 3
     poses1 = se3.SE3(torch.where(run, poses1.q, poses0.q),
@@ -234,12 +240,12 @@ def keyframe_mapping(state: SlamState, cam, config: Config,
 
     kf_pose = se3.SE3(state.kf_pose.q.index_copy(0, order, poses1.q),
                       state.kf_pose.t.index_copy(0, order, poses1.t))
-    kf_positions = state.kf_positions.index_copy(0, order, L1)
+    kf_positions = state.kf_positions.index_copy(0, order,
+                                                 L1[:, rows.block])
 
+    # The newest keyframe's copies (the window's last) refresh the map.
     newest = order[-1:]
-    newest_obs = state.kf_obs[newest][0] & win_valid[-1]
-    positions = torch.where(newest_obs[:, None], kf_positions[newest][0],
-                            state.positions)
+    positions = torch.where(obs_valid[-1][:, None], L1[-1], state.positions)
     Tcw = se3.SE3(torch.where(run, kf_pose.q[newest][0], state.Tcw.q),
                   torch.where(run, kf_pose.t[newest][0], state.Tcw.t))
     return state._replace(kf_pose=kf_pose, kf_positions=kf_positions,
@@ -248,8 +254,10 @@ def keyframe_mapping(state: SlamState, cam, config: Config,
 
 def do_mapping(state: SlamState, cam: cameras.Camera, config: Config,
                has_new_keyframe: bool,
-               rows: graph_mod.Rows = graph_mod.ALL) -> SlamState:
-    """Mapping::DoMapping (mapping.cc:36-54)."""
+               rows: graph_mod.Rows = graph_mod.ALL,
+               solves: tracking.Solves = tracking.WHOLE) -> SlamState:
+    """Mapping::DoMapping (mapping.cc:36-54); ``solves.ba`` runs the
+    keyframe's window BA."""
     if has_new_keyframe:
-        return keyframe_mapping(state, cam, config, rows)
+        return keyframe_mapping(state, cam, config, rows, solves)
     return landmark_triangulation(state, cam, config, rows)

@@ -182,8 +182,12 @@ def insert_temporal_snapshot(state: SlamState) -> SlamState:
     )
 
 
-def insert_keyframe(state: SlamState) -> SlamState:
-    """KeyFrame creation from the current frame (keyframe.cc:26-55)."""
+def insert_keyframe(state: SlamState, cols: slice = slice(0, None)
+                    ) -> SlamState:
+    """KeyFrame creation from the current frame (keyframe.cc:26-55). The
+    ring's ``[K, P, ...]`` leaves hold the slot columns ``cols`` (all of
+    them in one process; a rank of the point-sharded frame holds its
+    block)."""
     K = state.kf_valid.shape[0]
     slot = torch.remainder(state.kf_next, K)
     true = torch.ones((), dtype=torch.bool, device=slot.device)
@@ -192,9 +196,11 @@ def insert_keyframe(state: SlamState) -> SlamState:
         kf_id=set_row(state.kf_id, slot, state.frame_id),
         kf_pose=se3.SE3(set_row(state.kf_pose.q, slot, state.Tcw.q),
                         set_row(state.kf_pose.t, slot, state.Tcw.t)),
-        kf_keypoints=set_row(state.kf_keypoints, slot, state.keypoints),
-        kf_obs=set_row(state.kf_obs, slot, tracked_with_3d(state)),
-        kf_positions=set_row(state.kf_positions, slot, state.positions),
+        kf_keypoints=set_row(state.kf_keypoints, slot,
+                             state.keypoints[cols]),
+        kf_obs=set_row(state.kf_obs, slot, tracked_with_3d(state)[cols]),
+        kf_positions=set_row(state.kf_positions, slot,
+                             state.positions[cols]),
         kf_next=state.kf_next + 1,
     )
 

@@ -19,23 +19,30 @@ from nrslam_tpu_torch.ops import klt, shi_tomasi
 from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam.state import Config, SlamState
-from nrslam_tpu_torch.solver import pose_deformation, pose_only
+from nrslam_tpu_torch.solver import (bundle_adjustment, pose_deformation,
+                                     pose_only)
 
 
 class Solves(NamedTuple):
-    """The two solves of ``track_camera_and_deformation`` on the whole
-    ``[P]`` arrays: ``pose_only(cam, T0, X, obs, valid) -> SE3`` and
-    ``joint(cam, T0, rest, obs, valid, pairs, scale) ->
-    PoseDeformationResult``. ``WHOLE`` solves in this process (the
+    """The frame's solves: the two of ``track_camera_and_deformation`` on
+    the whole ``[P]`` arrays, ``pose_only(cam, T0, X, obs, valid) -> SE3``
+    and ``joint(cam, T0, rest, obs, valid, pairs, scale) ->
+    PoseDeformationResult``, and the keyframe's window BA of
+    ``mapping.keyframe_mapping``, ``ba(cam, poses0, L0, problem,
+    cg_iters=...) -> (poses [W], L [W, P, 3])`` with L0 and
+    ``problem.obs_valid`` whole and ``problem.obs`` the keyframe ring's
+    columns this process holds. ``WHOLE`` solves in this process (the
     whole-solver kernels on the card); the sharded frame passes
     ``parallel.solve_shard.mesh_solves``."""
 
     pose_only: Callable
     joint: Callable
+    ba: Callable
 
 
 WHOLE = Solves(pose_only.camera_pose_optimization,
-               pose_deformation.pose_deformation_optimization)
+               pose_deformation.pose_deformation_optimization,
+               bundle_adjustment.local_deformable_ba)
 
 
 def update_triangulated_points(state: SlamState) -> SlamState:
@@ -150,7 +157,8 @@ def create_keyframe(state: SlamState, pyramid, mask,
 def add_keyframe_features(state: SlamState, pyramid, mask, config: Config,
                           rows: graph_mod.Rows = graph_mod.ALL) -> SlamState:
     """``create_keyframe`` up to the keyframe snapshot: everything but the
-    KLT reference, which ``refresh_reference`` sets per slot."""
+    KLT reference, which ``refresh_reference`` sets per slot. The keyframe
+    ring holds the columns of ``rows.block`` (all in one process)."""
     img = pyramid[0][0]
     usable = klt.is_usable(state.status) & state.slot_used
 
@@ -196,7 +204,7 @@ def add_keyframe_features(state: SlamState, pyramid, mask, config: Config,
         next_track_id=state.next_track_id
         + torch.sum(can_place.to(torch.int32), dtype=torch.int32))
 
-    return state_mod.insert_keyframe(state)
+    return state_mod.insert_keyframe(state, rows.block)
 
 
 def refresh_reference(state: SlamState, pyramid, mask,

@@ -26,7 +26,7 @@ import chip_smoke
 assert len(names) >= 20, names
 parallel = {"nrslam_tpu_torch.parallel." + m for m in (
     "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun",
-    "solve_shard")}
+    "solve_shard", "ba_points")}
 assert parallel <= set(names), sorted(parallel - set(names))
 import multiprocessing
 import torch.distributed as dist

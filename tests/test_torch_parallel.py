@@ -43,8 +43,9 @@ from nrslam_tpu_torch.slam import state as tstate
 from nrslam_tpu_torch.slam import system as tsystem
 from nrslam_tpu_torch.utils.tree import tree_map
 
-from torch_parity import (np_of, pallas_ba_reference,  # noqa: F401
-                          quat_err, to_port)
+from torch_parity import (ba_floats, np_of,  # noqa: F401
+                          pallas_ba_reference, quat_err, solve_floats,
+                          to_port)
 
 torch.set_num_threads(1)
 
@@ -92,16 +93,12 @@ def test_sharded_frame_matches_jax(world, pallas_ba_reference):
     assert np.mean(out["state"].status == np_of(ref.status)) >= 0.98
 
 
-def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
-    """Three frames (non-keyframe, keyframe with new features and its BA,
-    non-keyframe) on ``_small_problem(64)`` with 16 of its slots freed and
-    a first keyframe inserted, sharded, against the JAX package's
-    single-device ``frame_step`` (``_fused_frame_impl``, its BA in the
-    Pallas configuration the port follows) and against the port's
-    single-process ``frame_step``."""
+def _freed_keyframe_problem():
+    """``_small_problem(64)`` with 16 of its slots freed and a first
+    keyframe inserted, its next three frames and the config: (JAX state,
+    raw frames, mask, cam, config)."""
     from nrslam_tpu.datasets import synthetic as jsynthetic
     from nrslam_tpu.slam import state as jstate
-    from nrslam_tpu.slam import system as jsystem
 
     js, _, cam, config, shape = _jax_problem()
     free = jnp.arange(64) >= 48
@@ -112,8 +109,20 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
         next_track_id=jnp.int32(48)))
     scene = jsynthetic.SceneConfig(height=96, width=128, fx=100.0, fy=100.0)
     raw = [jsynthetic.render_frame(i, scene)[0] for i in (1, 2, 3)]
-    mask = jnp.ones(shape, bool)
-    kfs = [False, True, False]
+    return js, raw, jnp.ones(shape, bool), cam, config
+
+
+def _frames_against_jax(world, kfs):
+    """The sharded frames over ``_freed_keyframe_problem`` against the JAX
+    package's single-device ``frame_step`` (``_fused_frame_impl``, its BA
+    in the Pallas configuration the port follows) and the port's
+    single-process ``frame_step``: n_tracked_3d equal, Tcw.t 1e-4,
+    positions 1e-3, statuses on >= 98% of slots, track ids and the
+    keyframe ring's validity equal. Returns (rank 0's record, the final
+    JAX state, the port's)."""
+    from nrslam_tpu.slam import system as jsystem
+
+    js, raw, mask, cam, config = _freed_keyframe_problem()
     outs = world.run("sharded_frames", _np(js),
                      [np.asarray(f) for f in raw], np.asarray(mask),
                      _np(cam), to_port(config), kfs)
@@ -130,7 +139,6 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
         jn3d.append(int(jres.n_tracked_3d))
         tn3d.append(int(tres.n_tracked_3d))
     assert outs[0]["n_tracked_3d"] == jn3d == tn3d
-    assert int(got.kf_valid.sum()) == 2 and int(got.slot_used.sum()) > 48
     for ref in (jax.device_get(js), convert.to_numpy(ts)):
         np.testing.assert_allclose(got.Tcw.t, np.asarray(ref.Tcw.t),
                                    atol=1e-4)
@@ -141,6 +149,19 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
                                       np.asarray(ref.track_id))
         np.testing.assert_array_equal(got.kf_valid,
                                       np.asarray(ref.kf_valid))
+    return outs[0], js, ts
+
+
+def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
+    """Three frames (non-keyframe, keyframe with new features and its BA,
+    non-keyframe) on ``_small_problem(64)`` with 16 of its slots freed and
+    a first keyframe inserted, sharded, against the JAX package's
+    single-device ``frame_step`` and against the port's single-process
+    ``frame_step`` (``_frames_against_jax``); the graph gathered from the
+    ranks' rows against the JAX graph."""
+    out, js, _ = _frames_against_jax(world, [False, True, False])
+    got = out["state"]
+    assert int(got.kf_valid.sum()) == 2 and int(got.slot_used.sum()) > 48
     jg = jax.device_get(js.graph)
     for f in ("exists", "bad"):
         np.testing.assert_array_equal(getattr(got.graph, f),
@@ -150,46 +171,91 @@ def test_sharded_keyframes_match_jax(world, pallas_ba_reference):
                                    np.asarray(getattr(jg, f)), atol=1e-3)
 
 
-def _solve_floats(P, n, pose_rounds=(10, 10, 10), rounds=(10, 10),
-                  cg_iters=10):
-    """(collectives, float32 elements) of one frame's sharded pose-only
-    and joint solves (parallel/solve_shard.py), whose sums travel as rows
-    of c = ceil(P / 64) chunks: 28 a chunk per pose-only evaluation; the
-    joint's rest / mask gather [P, 4], each round's first system with the
-    ranks' diagonals (28 c + n), per LM step the PCG start and each CG
-    trip's z or trial flows with two sums a chunk (3P + 2c) and the trips'
-    7 c and the trial system's 28 c, and the final chi2 gather [P]."""
-    c = -(-P // 64)
-    evals = sum(pose_rounds) + len(pose_rounds)
-    steps = sum(rounds)
-    count = evals + 1 + len(rounds) + steps * (2 + 2 * cg_iters) + 1
-    floats = (28 * c * evals + 4 * P + len(rounds) * (28 * c + n)
-              + steps * ((cg_iters + 1) * (3 * P + 2 * c) + 7 * c * cg_iters
-                         + 28 * c)
-              + P)
-    return count, floats
+def test_sharded_window_ba_keyframes_match_jax(world, pallas_ba_reference):
+    """Three keyframes in a row on the same problem: the second and third
+    run the window BA on 3 and 4 valid keyframes (below 3 its result is
+    not used), partitioned over the 4 ranks' point blocks; as
+    ``_frames_against_jax``, and the keyframe ring's poses (1e-4) and
+    landmark copies (1e-3), which the BA wrote, against both references."""
+    out, js, ts = _frames_against_jax(world, [True, True, True])
+    got = out["state"]
+    assert int(got.kf_valid.sum()) == 4
+    assert not np.array_equal(got.kf_positions[got.kf_valid][-2],
+                              got.kf_positions[got.kf_valid][-1])
+    for ref in (jax.device_get(js), convert.to_numpy(ts)):
+        np.testing.assert_allclose(got.kf_pose.t, np.asarray(ref.kf_pose.t),
+                                   atol=1e-4)
+        assert quat_err(got.kf_pose.q, np.asarray(ref.kf_pose.q)) <= 1e-4
+        np.testing.assert_allclose(got.kf_positions,
+                                   np.asarray(ref.kf_positions), atol=1e-3)
+
+
+def test_plain_oracle_is_deterministic():
+    """``dryrun._plain_solves`` (the one process that ``[parallel]`` holds
+    the sharded frame to) swaps all three solves to their plain drivers and
+    runs with deterministic algorithms, restoring both afterwards."""
+    from nrslam_tpu_torch.solver import bundle_adjustment as tba
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as tbac
+
+    kernel = tbac.local_deformable_ba_cuda
+    assert not torch.are_deterministic_algorithms_enabled()
+    with dryrun._plain_solves():
+        assert torch.are_deterministic_algorithms_enabled()
+        assert tbac.local_deformable_ba_cuda is tba.local_deformable_ba_plain
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert tbac.local_deformable_ba_cuda is kernel
+
+
+def test_frame_placement_round_trips(world):
+    """``tracking_shard.shard_state`` on every rank, then
+    ``sharding.unshard_state`` with ``state_axes``: the whole state back,
+    leaf for leaf; a rank holds its [16] slots, [16, 64] graph rows and
+    [K, 16] keyframe-ring columns, and the whole [T, 64] temporal ring."""
+    js, _, mask, _, config = _freed_keyframe_problem()
+    state = _np(js)
+    outs = world.run("frame_placement_round_trip", state, to_port(config),
+                     mask.shape)
+    for whole, shapes in outs:
+        tree_map(np.testing.assert_array_equal, whole, state)
+        assert shapes == {"positions": (16, 3), "graph.weight": (16, 64),
+                          "kf_positions": (8, 16, 3), "kf_obs": (8, 16),
+                          "tb_positions": (20, 64, 3), "tb_tracked": (20, 64),
+                          "refs.patch": (16, 5, 21, 21)}
 
 
 def test_sharded_frames_keep_graph_rows(world):
     """At P = 768 (the main path's slots, where a ``[P, P]`` payload would
-    stand out from the ``[P]``, ``[P, k]`` and ring gathers), a non-keyframe
-    and a keyframe on ``dryrun.small_problem``: every rank holds ``[192,
-    768]`` graph leaves after each frame, no collective payload reaches
-    ``P * P / 4`` elements, and a frame's collectives other than the
-    sharded solves' carry less than one ``[P, P]`` float32 matrix; the
-    solves' share is exactly their schedule's (O(P) a CG trip, no ``[P,
-    P]`` term); the ranks agree with each other."""
+    stand out from the ``[P]``, ``[P, k]`` and window gathers), a
+    non-keyframe and a keyframe on ``dryrun.small_problem``: every rank
+    holds ``[192, 768]`` graph leaves after each frame, no collective
+    payload reaches ``P * P / 4`` elements, and a frame's collectives other
+    than the partitioned solves' carry less than one ``[P, P]`` float32
+    matrix; the solves' share is exactly their schedule's (O(P) a CG trip,
+    no ``[P, P]`` term; on the keyframe the window BA's too); each frame
+    gathers the state's [P] arrays only, ``dryrun.frame_gather_bytes``
+    (no ring: the keyframe ring's columns stay on their rank, the temporal
+    ring is replicated); the ranks agree with each other."""
+    from nrslam_tpu_torch.parallel import tracking_shard
+
     P = 768
     state, gray, mask, cam, config = dryrun.small_problem(P, "cpu")
     outs = world.run("sharded_frames", convert.to_numpy(state),
                      [gray.numpy()] * 2, mask.numpy(), convert.to_numpy(cam),
                      config, [False, True], False)
+    axes = tracking_shard.gather_axes(config, tuple(gray.shape))
+    rings = tracking_shard.KF_RING + tracking_shard.TEMPORAL_RING
+    assert all(getattr(axes, f) is None for f in rings)
+    gathered = dryrun.frame_gather_bytes(config, tuple(gray.shape))
+    assert gathered == 30 * P
+    count, floats = solve_floats(P, N_RANKS)
+    ba_count, ba_nf = ba_floats(config.ba_window, P, N_RANKS,
+                                 cg_iters=config.ba_cg_iters)
     for out in outs:
         assert out["graph_shapes"] == [[(P // N_RANKS, P)]] * 2
         assert max(out["max_payload"]) < P * P // N_RANKS
-        count, floats = _solve_floats(P, N_RANKS)
-        assert out["solve_payloads"] == [count] * 2
-        assert out["solve_bytes"] == [4 * floats] * 2
+        assert out["solve_payloads"] == [count, count + ba_count]
+        assert out["solve_bytes"] == [4 * floats, 4 * (floats + ba_nf)]
+        assert out["gather_bytes"] == [gathered] * 2
         assert max(b - s for b, s in zip(out["bytes"],
                                          out["solve_bytes"])) < 4 * P * P
         assert out["n_tracked_3d"] == outs[0]["n_tracked_3d"]

@@ -258,7 +258,8 @@ def test_phase_launch_schedule():
     step launch per evaluation (3 rounds x (1 + 10)), a re-level between
     rounds; the joint one init, per round a first linearisation and step,
     per LM step a trial linearisation and step and per CG trip one hv and
-    one cg launch (2 x 10 x 10)."""
+    one cg launch (2 x 10 x 10); a keyframe's window BA partitioned too
+    (tests/test_torch_sharded_ba.py), so no whole-solver launch."""
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda as poc
 
@@ -268,6 +269,7 @@ def test_phase_launch_schedule():
                                           "hv": 200, "cg": 200}
     want = dryrun.frame_launches([False, True])
     assert want["pose_only"] == want["pose_deformation"] == 0
-    assert want["bundle_adjustment"] == 1
+    assert want["bundle_adjustment"] == 0
+    assert want["bundle_adjustment_shard.calls"] == 1
     assert want["pose_deformation_shard.cg"] == 400
     assert want["pose_only_shard.calls"] == 2

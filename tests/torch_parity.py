@@ -165,3 +165,43 @@ def jax_bench_problem(max_points, height, width, max_new_kp, seed=0,
     state = state_mod.insert_keyframe(state)
     raw = [synthetic.render_frame(i, scene)[0] for i in range(1, 7)]
     return state, raw, jnp.ones(gray0.shape, bool), cam, config
+
+
+# The partitioned solves' byte models: what one call's collectives carry on
+# n ranks, counted from their schedules (parallel/solve_shard.py,
+# parallel/ba_points.py). Both the plain and the kernel route make them.
+
+def solve_floats(P, n, pose_rounds=(10, 10, 10), rounds=(10, 10),
+                 cg_iters=10):
+    """(collectives, float32 elements) of one frame's sharded pose-only
+    and joint solves, whose sums travel as rows of c = ceil(P / 64) chunks:
+    28 a chunk per pose-only evaluation; the joint's rest / mask gather
+    [P, 4], each round's first system with the ranks' diagonals (28 c + n),
+    per LM step the PCG start and each CG trip's z or trial flows with two
+    sums a chunk (3P + 2c) and the trips' 7 c and the trial system's 28 c,
+    and the final chi2 gather [P]."""
+    c = -(-P // 64)
+    evals = sum(pose_rounds) + len(pose_rounds)
+    steps = sum(rounds)
+    count = evals + 1 + len(rounds) + steps * (2 + 2 * cg_iters) + 1
+    floats = (28 * c * evals + 4 * P + len(rounds) * (28 * c + n)
+              + steps * ((cg_iters + 1) * (3 * P + 2 * c) + 7 * c * cg_iters
+                         + 28 * c)
+              + P)
+    return count, floats
+
+
+def ba_floats(W, P, n, n_iters=5, cg_iters=16):
+    """(collectives, float32 elements) of one partitioned window BA call,
+    whose sums travel as rows of c = ceil(P / 64) chunks: the first
+    linearisation's S = 28 W + 1 a chunk with the ranks' diagonals (S c +
+    n); per LM step the PCG start and each CG trip's z with two sums a
+    chunk (3 W P + 2 c; after the last trip the trial copies with one, 3 W
+    P + c), the trips' (6 W + 1) c and the trial system's S c."""
+    c = -(-P // 64)
+    S = 28 * W + 1
+    count = 1 + n_iters * (2 + 2 * cg_iters)
+    floats = (S * c + n + n_iters * (
+        cg_iters * (3 * W * P + 2 * c) + (3 * W * P + c)
+        + cg_iters * (6 * W + 1) * c + S * c))
+    return count, floats
