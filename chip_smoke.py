@@ -27,7 +27,7 @@ prints its seconds):
      Every kernel must give the same bits on two launches ([determinism]).
      Kernels timed with CUDA events as the median of 20 after warm-up,
      alone on prepared inputs and through their wrappers, plain versions
-     as the median of 20 (pose-only) or 5 (joint, BA); each with the work
+     (pinhole P=768, BA 5 of 5 valid) as the median of 5; each with the work
      it reports (LM steps, CG trips, linearisations) and its bound. The
      pose-only kernel also: one wrapper call runs exactly one device kernel
      (torch.profiler), a 5-round schedule held to plain, and the spread of
@@ -64,20 +64,38 @@ prints its seconds):
      system_parity; P=384, the test_e2e initializer) on CUDA and on the
      CPU with the same draws, through the init, bootstrap_map
      and two keyframes: equal statuses every frame (so the same init
-     frame), slice tolerances on every tracked frame;
+     frame), slice tolerances on every tracked frame; the card's steady
+     frames all replayed (below);
   6. the slice timed at 320x240/P=384/128 new keypoints, then at scale:
      640x480/P=768/256 new keypoints. Each: 4 warm-up frames (two under
      torch.cuda.set_sync_debug_mode("error"), which raises on a host
      synchronisation it detects), then 10 timed frames at the 1-in-5
-     keyframe cadence; checks the map is alive, the pose-only and joint
-     kernels launched once per frame and the BA kernel once per keyframe;
+     keyframe cadence, then 10 more replayed by a frame_graph.FrameGraph
+     built from the state reached (both kinds of frame_step captured as
+     CUDA graphs): walls, CUDA-event ms per frame by kind eager and
+     replayed, the build's seconds and pools; checks the map is alive,
+     the pose-only and joint kernels launched once per frame and the BA
+     kernel once per keyframe, in both runs;
+  6a. [graph]: from one bench state at 640x480/P=768/256, 20 frames
+     alternating non-keyframe and keyframe: eager twice, bit for bit; the
+     FrameGraph's replays bit for bit against eager on every leaf of the
+     state, n_tracked_3d and lost in every frame, each snapshot unchanged
+     by the next frame; an eager state copied in and picked up; the LOST
+     freeze replayed and eager in both kinds; the launch counts untouched
+     by the build (warm-up and capture) and added to by each replay; per
+     frame one cudaGraphLaunch and no kernel launch on the host
+     (torch.profiler's runtime calls), the kernels and device time of one
+     replay; ms per frame eager and replayed, a step's enqueue;
   7. the main path: System.track_image_with_depth from frame 0 on the
      synthetic sequence at 640x480, P=768, 256 new keypoints, default
      initializer (1024 features), 60 frames: init frame, ms per init /
      keyframe / non-keyframe frame, median depth RMSE, Sim(3) ATE, and the
      launch counts (pose-only once per steady frame + 3 per two-view
      refinement, joint once per steady frame, BA once per keyframe), which
-     the kernels' record reports;
+     the kernels' record reports; the System replays every steady frame
+     (FrameGraph.replays equal to the steady frames here and in phases 5,
+     9, 10 and 11; a replay adds the launches its capture recorded, so the
+     launch counts hold as before);
   8. the pose-only kernel against its plain version on the inputs the main
      path's two-view refinement gave it (P = 1024 features, only the
      triangulated ones valid), at the same-device gate, and timed (bare
@@ -106,7 +124,9 @@ prints its seconds):
      keyframes have gone into the 8-slot ring (it wrapped), then 4 black
      frames, within which LOST must latch, then the scene again: the
      re-initialisation must succeed and the run end TRACKING with >= 10
-     tracked 3D points and finite positions; prints each status change;
+     tracked 3D points and finite positions, its steady frames replayed by
+     the one FrameGraph built before the blackout; prints each status
+     change;
  12. [parallel]: 4 ranks spawned on this card (parallel.dryrun.World,
      gloo over a FileStore in the scratch directory; started before phase
      3 and idle until now) hold, each against its single-process
@@ -523,9 +543,9 @@ def kernel_phase(dev):
         ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
             cam, T0, X, obs, valid))
         ms_p = float("nan")
-        if main:
+        if main and kind == "pinhole":
             ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
-                cam, T0, X, obs, valid))
+                cam, T0, X, obs, valid), warmup=1, reps=5)
         flops = pose_only_flops(po_steps, int(valid.sum()))
         n_b = pose_only_bytes(prep)
         b_ms, by = bound(flops, n_b)
@@ -553,7 +573,7 @@ def kernel_phase(dev):
         n_b = nbytes(*prep.tensors, *prep.out)
         b_ms, by = bound(flops, n_b)
         ms_p = float("nan")
-        if main:
+        if main and kind == "pinhole":
             ms_p = cuda_ms(lambda: pd.pose_deformation_plain(
                 cam, T_p, X, obs, valid, cp, 1.0), warmup=1, reps=5)
         print(f"[kernel] pose_deformation {label}: kernel alone {ms_a:.4f} ms, "
@@ -910,8 +930,10 @@ def ba_kernel_phase(dev):
         ms_a = cuda_ms(lambda: bac.launch(prep))
         ms_k = cuda_ms(lambda: bac.local_deformable_ba_cuda(
             cam, poses0, L0, prob, cg_iters=cg))
-        ms_p = cuda_ms(lambda: ba.local_deformable_ba_plain(
-            cam, poses0, L0, prob, cg_iters=cg), warmup=1, reps=5)
+        ms_p = float("nan")
+        if n_valid == 5 and kind == "pinhole":
+            ms_p = cuda_ms(lambda: ba.local_deformable_ba_plain(
+                cam, poses0, L0, prob, cg_iters=cg), warmup=1, reps=5)
         K, P = L0.shape[0], L0.shape[1]
         E_live = int(prep.tensors[-3][-1]) // 2  # layout's inc_ptr[P]
         flops = ba_flops(work, K, P, E_live)
@@ -1109,11 +1131,12 @@ def system_parity(dev):
         rad_per_pixel=1.0 / scene.fx, n_hypotheses=48)
     s_cpu = system.System(cam, config, init_config)
     s_gpu = system.System(convert.to_device(cam, dev), config, init_config)
-    init_frame, keyframes = None, 0
+    init_frame, keyframes, steady = None, 0, 0
     for i in range(len(seq)):
         gray, depth, _ = seq.get_frame(i)
         o_cpu = s_cpu.track_image_with_depth(gray, depth)
         o_gpu = s_gpu.track_image_with_depth(gray, depth)
+        steady += "keyframe" in o_gpu
         if s_cpu.status != s_gpu.status:
             raise AssertionError(f"system parity: frame {i} status "
                                  f"{s_gpu.status} on the card, "
@@ -1140,14 +1163,17 @@ def system_parity(dev):
           f"tracked frames {init_frame}-{i} within the slice tolerances, "
           f"{keyframes} keyframes (last BA window "
           f"{int(s_gpu.state.kf_valid.sum())} keyframes)")
+    check_replays("system-parity", replays(s_gpu), steady)
 
 
 def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     """4 warm-up frames (the last two under sync_debug_mode="error"), then 10
-    timed frames at the 1-in-5 keyframe cadence. Returns the launch counts
-    of the timed run."""
+    timed frames at the 1-in-5 keyframe cadence, eager, then 10 more
+    replayed by a FrameGraph built from the state they reached: walls,
+    CUDA-event ms per frame by kind, the graphs' build, the launch counts
+    of each run."""
     from nrslam_tpu_torch import bench_problem
-    from nrslam_tpu_torch.slam import system
+    from nrslam_tpu_torch.slam import frame_graph, system
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
@@ -1167,26 +1193,227 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
-    reset_launches()
+    def timed(step, s):
+        """10 frames of ``step`` at the 1-in-5 keyframe cadence: (state,
+        last result, wall s, CUDA-event ms per frame by kind)."""
+        n, events = 10, []
+        t0 = time.perf_counter()
+        for i in range(n):
+            kf = (i % 5) == 4
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            s, res = step(s, frames[i % len(frames)], kf)
+            ev[1].record()
+            events.append((kf, ev))
+        torch.cuda.synchronize()
+        ms = {kf: [a.elapsed_time(b) for k, (a, b) in events if k == kf]
+              for kf in (False, True)}
+        return s, res, time.perf_counter() - t0, ms
+
+    def check_map(label, s, res):
+        n3d, lost = int(res.n_tracked_3d), bool(res.lost)
+        finite = bool(torch.isfinite(s.positions).all())
+        if lost or n3d < 10 or not finite:
+            raise AssertionError(f"slice at scale ({label}): map lost or "
+                                 "non-finite")
+        return f"n_tracked_3d={n3d} lost={lost} finite={finite}"
+
     n = 10
-    t0 = time.perf_counter()
-    for i in range(n):
-        s, res = system.frame_step(s, frames[i % len(frames)], mask, cam,
-                                   config, (i % 5) == 4)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    reset_launches()
+    s, res, dt, ms_e = timed(lambda s, g, kf: system.frame_step(
+        s, g, mask, cam, config, kf), s)
     launches = {"pose_only": pose_only_cuda.launches,
                 "pose_deformation": pdc.launches,
                 "bundle_adjustment": bac.launches}
-    n3d, lost = int(res.n_tracked_3d), bool(res.lost)
-    finite = bool(torch.isfinite(s.positions).all())
     print(f"[scale] {W}x{H} P={P}: {n} frames in {dt:.3f} s = "
           f"{n / dt:.2f} frames/s, {1e3 * dt / n:.2f} ms/frame on {card}; "
-          f"n_tracked_3d={n3d} lost={lost} finite={finite} "
+          f"{check_map('eager', s, res)} "
           f"launches={launches}; warm-up frames 3-4 had no host syncs")
-    if lost or n3d < 10 or not finite:
-        raise AssertionError("slice at scale: map lost or non-finite")
     check_launches(f"scale {W}x{H}", n, n // 5)
+
+    # The same cadence replayed (frame_graph.FrameGraph, built from here).
+    t0 = time.perf_counter()
+    fg = frame_graph.FrameGraph(s, frames[0], mask, cam, config)
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    s, res, dt_r, ms_r = timed(lambda s, g, kf: fg.step(s, g, mask, kf), s)
+    med = {(label, kf): statistics.median(ms[kf])
+           for label, ms in (("e", ms_e), ("r", ms_r)) for kf in (False, True)}
+    print(f"[scale] {W}x{H} P={P} replayed: {n} frames in {dt_r:.3f} s = "
+          f"{n / dt_r:.2f} frames/s, {1e3 * dt_r / n:.2f} ms/frame on "
+          f"{card}; {check_map('replayed', s, res)}; ms/frame by CUDA "
+          f"events, median: non-keyframe eager {med[('e', False)]:.2f} "
+          f"replayed {med[('r', False)]:.2f}, keyframe eager "
+          f"{med[('e', True)]:.2f} replayed {med[('r', True)]:.2f}; graphs "
+          f"built in {build_s:.2f} s (captures {fg.capture_s[False]:.2f} / "
+          f"{fg.capture_s[True]:.2f} s), pools {fg.pool_bytes[False]} / "
+          f"{fg.pool_bytes[True]} B")
+    check_launches(f"scale {W}x{H} replayed", n, n // 5)
+    if fg.replays != n:
+        raise AssertionError(f"slice at scale: {fg.replays} replays of {n}")
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The dotted field names of a tree's leaves, in ``utils.tree`` order."""
+    from nrslam_tpu_torch.utils.tree import is_namedtuple
+
+    if is_namedtuple(tree):
+        return [n for f, x in zip(tree._fields, tree)
+                for n in leaf_names(x, f"{prefix}{f}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for k, x in enumerate(tree)
+                for n in leaf_names(x, f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def first_difference(a, b):
+    """The name of the first leaf whose dtype, shape or bits differ between
+    two trees of one structure, or None."""
+    from nrslam_tpu_torch.utils import tree
+
+    for name, x, y in zip(leaf_names(a), tree.leaves(a), tree.leaves(b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            return name
+    return None
+
+
+def graph_phase(dev, card: str, n: int = 20):
+    """[graph]: the frame graph against the eager frame at 640x480/P=768/256
+    from one bench state, n frames alternating non-keyframe and keyframe:
+    two eager runs bit for bit; the replayed run bit for bit against the
+    eager one on every leaf of the state and the result in every frame, the
+    snapshot of frame k unchanged after frame k+1; a state copied in (an
+    eager one) picked up; the LOST freeze in both kinds; the wrappers'
+    launch counts untouched by the build and added to by every replay; one
+    graph launch and no kernel launch on the host a frame (torch.profiler,
+    which also reads the kernels of one replay and their device time)."""
+    from nrslam_tpu_torch import bench_problem
+    from nrslam_tpu_torch.slam import frame_graph, system
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    s0, frames, mask, cam, config = bench_problem.build_bench_problem(
+        768, 480, 640, 256, device=dev)
+    kinds = [i % 2 == 1 for i in range(n)]
+
+    def frame(i):
+        return frames[i % len(frames)]
+
+    def eager():
+        s, out, ms = s0, [], []
+        for i, kf in enumerate(kinds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, r = system.frame_step(s, frame(i), mask, cam, config, kf)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append((s, r))
+        return out, ms
+
+    ref, ms_a = eager()
+    again, ms_b = eager()
+    diff = [first_difference(a, b) for a, b in zip(ref, again)]
+    print(f"[graph] 640x480 P=768 on {card}: eager twice, {n} frames "
+          f"alternating non-keyframe / keyframe, first differing leaf by "
+          f"frame {diff}")
+    if any(diff):
+        raise AssertionError(f"graph: eager frame_step is not bit for bit "
+                             f"repeatable: {diff}")
+
+    reset_launches()
+    fg = frame_graph.FrameGraph(s0, frame(0), mask, cam, config)
+    counts = (pose_only_cuda.launches, pdc.launches, bac.launches)
+    print(f"[graph] built in {fg.build_s:.2f} s (captures "
+          f"{fg.capture_s[False]:.2f} / {fg.capture_s[True]:.2f} s, "
+          f"non-keyframe / keyframe), pools {fg.pool_bytes[False]} / "
+          f"{fg.pool_bytes[True]} B, packed state {fg.buf.numel()} B; "
+          f"launches recorded {fg.launches}; wrapper counts after the "
+          f"build {counts}")
+    if counts != (0, 0, 0):
+        raise AssertionError("graph: the build changed the launch counts")
+
+    s, out, ms_r, enq = s0, [], [], []
+    for i, kf in enumerate(kinds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, r = fg.step(s, frame(i), mask, kf)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ms_r.append(1e3 * (time.perf_counter() - t0))
+        enq.append(1e3 * (t1 - t0))
+        out.append((s, r))
+        bad = first_difference(out[i], ref[i])
+        kept = i == 0 or first_difference(out[i - 1], ref[i - 1]) is None
+        if bad or not kept:
+            raise AssertionError(f"graph: frame {i} (keyframe={kf}) "
+                                 f"replayed differs from eager at {bad}; "
+                                 f"the snapshot of frame {i - 1} unchanged "
+                                 f"{kept}")
+    check_launches("graph", n, sum(kinds))
+    if fg.replays != n:
+        raise AssertionError(f"graph: {fg.replays} replays of {n} frames")
+
+    # One graph launch a frame on the host (two steady steps, from the last
+    # snapshot: no copy-in); the kernels of a replay.
+    readings = {}
+    s = out[-1][0]
+    for kf in (False, True):
+        s, _, rd = frame_graph.profile_step(fg, s, frame(0), mask, kf)
+        readings[kf] = rd
+        kernel_calls = sum(v for k, v in rd["host"].items()
+                           if "Launch" in k and k != "cudaGraphLaunch")
+        if rd["host"].get("cudaGraphLaunch") != 1 or kernel_calls \
+                or rd["kernels"] < 100:
+            raise AssertionError(f"graph: keyframe={kf} step made host "
+                                 f"calls {rd['host']}, {rd['kernels']} "
+                                 "device kernels")
+
+    # A state the graph did not return is copied in: step the eager state
+    # of frame 9 and compare with frame 10.
+    k = n // 2
+    got = fg.step(ref[k - 1][0], frame(k), mask, kinds[k])
+    copied = first_difference(got, ref[k])
+    # The LOST freeze in both kinds, replayed and eager.
+    lost = ref[-1][0]._replace(lost=torch.ones((), dtype=torch.bool,
+                                               device=dev))
+    frozen = {}
+    for kf in (False, True):
+        rs, rr = fg.step(lost, frame(0), mask, kf)
+        es, er = system.frame_step(lost, frame(0), mask, cam, config, kf)
+        frozen[kf] = (first_difference(rs, lost), first_difference(es, lost),
+                      int(rr.n_tracked_3d), int(er.n_tracked_3d),
+                      bool(rr.lost), bool(er.lost))
+    print(f"[graph] replayed against eager: every leaf of the state, "
+          f"n_tracked_3d and lost bit-equal in all {n} frames "
+          f"(n_tracked_3d {[int(r.n_tracked_3d) for _, r in out]}), each "
+          f"snapshot unchanged by the next frame; a state copied in: first "
+          f"difference {copied}; LOST freeze (differing leaf replayed, "
+          f"eager, n_tracked_3d, lost) {frozen}")
+    if copied is not None:
+        raise AssertionError("graph: a state copied in was not picked up")
+    if any(v != (None, None, 0, 0, True, True) for v in frozen.values()):
+        raise AssertionError(f"graph: LOST freeze broken {frozen}")
+
+    med = {kf: (statistics.median([m for m, k in zip(ms_b, kinds)
+                                   if k == kf]),
+                statistics.median([m for m, k in zip(ms_r, kinds)
+                                   if k == kf]),
+                statistics.median([m for m, k in zip(enq, kinds)
+                                   if k == kf]))
+           for kf in (False, True)}
+    for kf, label in ((False, "non-keyframe"), (True, "keyframe")):
+        rd = readings[kf]
+        print(f"[graph] {label}: eager {med[kf][0]:.2f} ms, replayed "
+              f"{med[kf][1]:.2f} ms a frame (host clock to the end of the "
+              f"device work, median of {n // 2}), step enqueue "
+              f"{med[kf][2]:.3f} ms; one replay: {rd['kernels']} kernels + "
+              f"{rd['copies']} copies, {rd['busy_ms']:.2f} ms of device "
+              f"time; host launch calls a frame {rd['host']}")
+    return fg
 
 
 def run_system(dev, n: int = 60):
@@ -1203,6 +1430,7 @@ def run_system(dev, n: int = 60):
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
+    from nrslam_tpu_torch.utils import tree
 
     scene = synthetic.SceneConfig(height=480, width=640, deform_amp=0.02)
     seq = synthetic.SyntheticSequence(scene, n_frames=n, device=dev)
@@ -1235,8 +1463,11 @@ def run_system(dev, n: int = 60):
                 "keyframe" if out["keyframe"] else "non-keyframe")
             ms[kind].append(dt_ms)
             if sysm.status == system.TRACKING:
+                # Values of the snapshot System returned (on the card a
+                # copy of the frame graph's buffer), cloned so that the
+                # rest of that copy is freed.
                 init_frame = i if init_frame is None else init_frame
-                est.append(sysm.state.Tcw)
+                est.append(tree.tree_map(torch.clone, sysm.state.Tcw))
                 gt.append(T_gt)
                 poses[i] = sysm.state.Tcw.t.cpu()
     finally:
@@ -1252,7 +1483,21 @@ def run_system(dev, n: int = 60):
         "launches": {"pose_only": pose_only_cuda.launches,
                      "pose_deformation": pdc.launches,
                      "bundle_adjustment": bac.launches},
-        "refines": initializer.refines, "refine_inputs": refine_inputs}
+        "refines": initializer.refines, "refine_inputs": refine_inputs,
+        "replays": replays(sysm)}
+
+
+def replays(sysm) -> int:
+    """The steady frames a System replayed (0 where it built no graph)."""
+    return 0 if sysm.frame_graph is None else sysm.frame_graph.replays
+
+
+def check_replays(label: str, replayed: int, steady: int) -> None:
+    """On the card every steady frame of a System is a replay."""
+    print(f"[{label}] {replayed} of {steady} steady frames replayed")
+    if replayed != steady:
+        raise AssertionError(f"{label}: {replayed} replays, {steady} steady "
+                             "frames")
 
 
 def system_at_scale(dev, card: str, n: int = 60):
@@ -1278,6 +1523,7 @@ def system_at_scale(dev, card: str, n: int = 60):
         raise AssertionError("system at scale: not tracking, < 10 tracked "
                              "3D points or non-finite positions")
     check_launches("system", steady, len(ms["keyframe"]))
+    check_replays("system", run["replays"], steady)
     if len(run["refine_inputs"]) != 3 * refines:
         raise AssertionError(f"{len(run['refine_inputs'])} pose-only solves "
                              f"on init frames, expected 3 x {refines} "
@@ -1386,7 +1632,7 @@ def refine_kernel_check(inputs, rec):
     ms_k = cuda_ms(lambda: pose_only_cuda.camera_pose_optimization_cuda(
         cam, T0, X, obs, valid))
     ms_p = cuda_ms(lambda: pose_only.camera_pose_optimization_plain(
-        cam, T0, X, obs, valid))
+        cam, T0, X, obs, valid), warmup=1, reps=5)
     flops = pose_only_flops(steps, int(valid.sum()))
     b_ms, by = bound(flops, pose_only_bytes(prep))
     print(f"[kernel] pose_only init refine: kernel alone {ms_a:.4f} ms, "
@@ -1540,6 +1786,8 @@ def disk_hamlyn(dev, card: str):
         launches = check_launches("disk-hamlyn",
                                   timer.count("keyframe", "non-keyframe"),
                                   timer.count("keyframe"))
+        check_replays("disk-hamlyn", replays(slam),
+                      timer.count("keyframe", "non-keyframe"))
         print(f"[disk-hamlyn] 640x480 P=768 on {card}: {n} stereo pairs "
               f"exported in {t_export:.2f} s, run_slam {t_run:.2f} s: "
               f"{json.dumps(summary)}; {timer.summary()}")
@@ -1637,6 +1885,8 @@ def disk_simulation(dev, card: str):
         check_launches("disk-simulation",
                        timer.count("keyframe", "non-keyframe"),
                        timer.count("keyframe"))
+        check_replays("disk-simulation", replays(slam),
+                      timer.count("keyframe", "non-keyframe"))
         dumps = sorted(f for f in os.listdir(viz) if f.endswith(".png"))
         shapes = {png.read(os.path.join(viz, f)).shape for f in dumps}
         print(f"[disk-simulation] 320x240 KB8 P=384 on {card}: {n} frames "
@@ -1702,12 +1952,15 @@ def collapse_phase(dev, card: str):
                          lost_check_every=1)
     changes, status, black, inserted, lost_at, reinit_at = [], None, None, \
         0, None, None
-    out = {}
+    out, steady, graphs = {}, 0, set()
     for i in range(200):
         gray, depth, _ = synthetic.render_frame(i, scene, dev)
         dark = black is not None and black <= i < black + 4
         out = sysm.track_image_with_depth(gray * 0.0 if dark else gray,
                                           depth)
+        steady += "keyframe" in out
+        if sysm.frame_graph is not None:
+            graphs.add(id(sysm.frame_graph))
         if sysm.status != status:
             changes.append((i, sysm.status))
             status = sysm.status
@@ -1735,6 +1988,11 @@ def collapse_phase(dev, card: str):
     if reinit_at is None or sysm.status != system.TRACKING or n3d < 10 \
             or not finite:
         raise AssertionError("collapse: no re-initialised map tracking")
+    # The graphs built at the first map's first steady frame replay the
+    # re-initialised map too.
+    check_replays("collapse", replays(sysm), steady)
+    if len(graphs) != 1:
+        raise AssertionError(f"collapse: {len(graphs)} frame graphs built")
 
 
 def _np(tree):
@@ -1870,6 +2128,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     phase("system parity", system_parity, dev)
     phase("slice 320x240", slice_at_scale, dev, card, 384, 240, 320, 128)
     phase("slice 640x480", slice_at_scale, dev, card, 768, 480, 640, 256)
+    phase("graph", graph_phase, dev, card)
     launches, refine_inputs = phase("system 640x480", system_at_scale, dev,
                                     card)
     phase("pose-only at the init refine", refine_kernel_check, refine_inputs,

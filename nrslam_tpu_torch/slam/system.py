@@ -14,6 +14,11 @@ the old state unchanged (the reference exits at the collapse frame,
 tracking.cc:97-99). Steady frames read nothing back to the host except the
 LOST flag every ``lost_check_every`` frames; init frames read their reset
 and success flags once each.
+
+On the card, ``System`` builds a ``frame_graph.FrameGraph`` (both frame
+kinds captured as CUDA graphs) at its first steady frame and replays it for
+every steady frame after, a re-initialised map included; on the CPU it
+calls ``frame_step``.
 """
 
 from __future__ import annotations
@@ -180,6 +185,8 @@ class System:
         self.evaluator = evaluator_mod.FrameEvaluator()
         self._image_shape = None
         self._ones_mask = None
+        # The captured frame (frame_graph.FrameGraph), on the card only.
+        self.frame_graph = None
 
     # -- preprocessing ------------------------------------------------------
 
@@ -226,8 +233,16 @@ class System:
 
         make_kf = self._frames_since_kf >= self.config.keyframe_every
         self._frames_since_kf = 0 if make_kf else self._frames_since_kf + 1
-        self.state, frame_result = frame_step(
-            self.state, gray, mask, self.cam, self.config, make_kf)
+        if self.device.type == "cuda":
+            if self.frame_graph is None:
+                from nrslam_tpu_torch.slam import frame_graph
+                self.frame_graph = frame_graph.FrameGraph(
+                    self.state, gray, mask, self.cam, self.config)
+            self.state, frame_result = self.frame_graph.step(
+                self.state, gray, mask, make_kf)
+        else:
+            self.state, frame_result = frame_step(
+                self.state, gray, mask, self.cam, self.config, make_kf)
         self._frame_count += 1
 
         if self._frame_count % self.lost_check_every == 0:

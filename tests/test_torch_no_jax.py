@@ -28,6 +28,7 @@ parallel = {"nrslam_tpu_torch.parallel." + m for m in (
     "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun",
     "solve_shard", "ba_points")}
 assert parallel <= set(names), sorted(parallel - set(names))
+assert "nrslam_tpu_torch.slam.frame_graph" in names
 import multiprocessing
 import torch.distributed as dist
 assert not dist.is_initialized(), "an import started a process group"
