@@ -11,7 +11,8 @@ another commit's ``git archive``: measurements, not checks.)
 
 Phases (any failure raises and exits non-zero; nothing is caught; each
 prints its seconds):
-  1. require a CUDA device; print the card's name and power limit;
+  1. require a CUDA device; print the card's name and power limit, then
+     its SM clock (current / max, utils.profiler.gpu_header);
   2. build the three hand-written kernels from csrc/ with nvcc (sm_90a, one
      nvcc per source, all started together) and print ptxas's register,
      stack, spill and shared-memory report ([ptxas]); both instantiations
@@ -57,6 +58,14 @@ prints its seconds):
      K=8 with P=768, 1536 and 2048, where edge-end records, the full vector
      copies or the owned state no longer fit in shared memory; each against
      the plain drivers under the same gates ([overflow]);
+  3c. [stages]: the per-stage tools (profile_stages, profile_device) at
+     320x240/P=384/128: device_timeit's captured chain
+     (utils.profiler.Chain) of full_frame_nokf and of pose_only bit for
+     bit the eager chain; 10 stages timed, 3 also profiled
+     (STAGES_TIMED, STAGES_PROFILED), each reading finite and > 0, each
+     device ms <= 1.05 x the stage's chained ms; the launch counts
+     untouched by the captures and replays; the SM clock while captured
+     frames replay (stages_phase);
   4. slice parity: 6 frames of frame_step at 320x240/P=384 on CUDA (with
      the kernels) and on the CPU (plain versions) from one start state;
   5. system parity: System.track_image_with_depth from frame 0 on the
@@ -100,6 +109,10 @@ prints its seconds):
      path's two-view refinement gave it (P = 1024 features, only the
      triangulated ones valid), at the same-device gate, and timed (bare
      launch and wrapper);
+  8a. [init4000]: profile_scale.init_at_scale at the reference's 4,000
+     features on 640x480 frames: success within its 8 frames, ms per init
+     frame; the pose-only kernel against plain at the same-device gate on
+     the inputs of the first two-view refinement's three solves (P = 4,000);
   9. [disk-hamlyn], the disk path at full width: datasets/hamlyn_export
      writes 60 stereo frames of the 640x480 scene (deformation 0.02) as
      PNGs, then ``python -m nrslam_tpu_torch.apps.run_slam --dataset
@@ -1416,6 +1429,136 @@ def graph_phase(dev, card: str, n: int = 20):
     return fg
 
 
+def counts_and_handles():
+    """The wrappers' launch counts (values) and last-launch handles (the
+    objects), as frame_graph.wrapper_globals names them."""
+    from nrslam_tpu_torch.slam import frame_graph
+
+    return {k: (v if k[1] == "launches" else id(v))
+            for k, v in frame_graph.wrapper_globals().items()}
+
+
+# [stages]: calls a stage makes in the tools' checks (timings of the shape
+# of each figure, not the figures the tools report with their defaults).
+STAGES_K = 2
+# The stages [stages] times, within its share of the script's budget:
+# tracking_frame_* and mapping_triangulate, parts of the full frames, are
+# left out. Of these, three with 100-200 kernels a call are also read under
+# torch.profiler: a profiled call of a whole frame's ~20k kernels takes
+# seconds of host time, and a process minutes old loses a few kernels of
+# each profiler session on an H100 (2 to 11 of pyramid's 171 between 54 and
+# 178 s of age), which can leave nothing of pose-only's 2 or top-k's 14.
+STAGES_TIMED = ("null_step", "pyramid", "klt_track", "pose_only",
+                "pose_deformation", "top_k_neighbors", "point_reuse",
+                "mapping_ba", "full_frame_nokf", "full_frame_kf")
+STAGES_PROFILED = ("pyramid", "pose_deformation", "mapping_ba")
+
+
+def stages_phase(dev, card: str):
+    """[stages]: the per-stage tools at 320x240/P=384/128 on the steady
+    state of profile_stages.steady_state. The captured chain of
+    device_timeit (profiler.Chain, STAGES_K calls of full_frame_nokf and of
+    pose_only) leaves bit for bit what STAGES_K eager calls return from the
+    same carry; for every stage of STAGES_TIMED, profile_device's
+    device_timeit and profile_stages' chained ms (one call), and for those
+    of STAGES_PROFILED also the device ms and kernels of one call under
+    torch.profiler (profile_stages.measure), read finite and > 0, and each
+    device ms is <= 1.05 x the stage's chained ms; the captures and replays
+    leave the wrappers' launch counts and handles as they were. Few calls
+    a stage: a check of the tools, whose figures come from their own
+    runs."""
+    from nrslam_tpu_torch import profile_device, profile_stages
+    from nrslam_tpu_torch.utils import profiler
+
+    pb = profile_stages.steady_state(384, 240, 320, 128, dev)
+    calls = profile_stages.stage_calls(pb)
+    stages = {k: (profile_stages.measure(*calls[k], n=1, warmup=0)
+                  if k in STAGES_PROFILED else
+                  {"chained_ms": profiler.chained_timeit(*calls[k], n=1,
+                                                         warmup=0)})
+              for k in STAGES_TIMED if k in calls}
+    steps = profile_device.stage_steps(pb)
+    chains, moved = {}, []
+    for key in ("full_frame_nokf", "pose_only"):
+        step, carry = steps[key]
+        before = counts_and_handles()
+        chains[key] = chain = profiler.Chain(step, carry, STAGES_K, key)
+        chain.replay()
+        moved.append(counts_and_handles() != before)
+        for _ in range(STAGES_K):
+            carry = step(carry)
+        bad = first_difference(chain.carry, carry)
+        print(f"[stages] {key}: {STAGES_K} calls captured in one CUDA graph "
+              f"against {STAGES_K} eager calls from the same carry: first "
+              f"differing leaf {bad}")
+        if bad is not None:
+            raise AssertionError(f"[stages] {key}: the captured chain "
+                                 f"differs from the eager chain at {bad}")
+    before = counts_and_handles()
+    device = {key: chain.ms(reps=1) for key, chain in chains.items()}
+    device.update(profile_device.run(
+        pb, [k for k in STAGES_TIMED if k not in chains], k=STAGES_K,
+        reps=1))
+    moved.append(counts_and_handles() != before)
+    print(f"[stages] launch counts and handles moved by the captures and "
+          f"replays: {any(moved)}")
+    if any(moved):
+        raise AssertionError("[stages] the tools' captures or replays moved "
+                             "the wrappers' launch counts or handles")
+    for key in STAGES_TIMED:
+        st = stages.get(key, {})
+        print(f"[stages] 320x240 P=384 on {card}: {key}: device_timeit "
+              f"{device[key]:.4f} ms; {json.dumps(st)}")
+        values = [device[key], *st.values()]
+        if not all(math.isfinite(v) and v > 0 for v in values):
+            raise AssertionError(f"[stages] {key}: a reading is not finite "
+                                 f"and > 0: {values}")
+        if st and max(st.get("device_ms", 0.0), device[key]) \
+                > 1.05 * st["chained_ms"]:
+            raise AssertionError(f"[stages] {key}: device ms above 1.05 x "
+                                 f"its chained ms: {st}, {device[key]}")
+
+    def busy():
+        for _ in range(5):
+            chains["full_frame_nokf"].replay()
+
+    print(f"[stages] {profiler.GPU_FIELDS} while the captured frames "
+          f"replay: {profiler.gpu_header(busy)}")
+
+
+def init4000_phase(dev, card: str, rec):
+    """[init4000]: profile_scale.init_at_scale at the reference's 4,000
+    features on 640x480 frames (reset, then 8 init frames, twice): it must
+    succeed within the 8 frames; the pose-only kernel on the inputs of the
+    first two-view refinement's three solves (P = 4,000 slots, the
+    triangulated ones valid) against the plain driver at the same-device
+    gate, as phase 8 at 1,024; prints ms per init frame."""
+    from nrslam_tpu_torch import profile_scale
+    from nrslam_tpu_torch.solver import pose_only
+
+    inputs = []
+    solve = pose_only.camera_pose_optimization
+
+    def recording_solve(cam, T0, X, obs, valid, *args):
+        inputs.append((cam, T0, X, obs, valid))
+        return solve(cam, T0, X, obs, valid, *args)
+
+    pose_only.camera_pose_optimization = recording_solve
+    try:
+        r = profile_scale.init_at_scale(4000, 480, 640, device=dev)
+    finally:
+        pose_only.camera_pose_optimization = solve
+    print(f"[init4000] 640x480 on {card}: {json.dumps(r)}")
+    if not r["success"] or r["pose_only_launches"] != 3 * r["refines"]:
+        raise AssertionError(f"[init4000] no success in 8 frames, or "
+                             f"pose-only launches not 3 a refinement: {r}")
+    for n, (cam, T0, X, obs, valid) in enumerate(inputs[:3]):
+        err, _, _, _ = check_pose_only(
+            f"init4000 refine solve {n} P={X.shape[0]} "
+            f"valid={int(valid.sum())}", cam, T0, X, obs, valid)
+        rec["pose_only"]["err"] = max(rec["pose_only"]["err"], err)
+
+
 def run_system(dev, n: int = 60):
     """System.track_image_with_depth from frame 0 on the synthetic sequence
     at 640x480, P=768, 256 new keypoints, default initializer, on `dev`.
@@ -2124,6 +2267,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     rec["bundle_adjustment_shard"] = phase(
         "partitioned BA kernels", ba_shard_kernel_phase, dev, rec)
     phase("shared-memory overflow", overflow_phase, dev)
+    phase("stages", stages_phase, dev, card)
     phase("slice parity", slice_parity, dev)
     phase("system parity", system_parity, dev)
     phase("slice 320x240", slice_at_scale, dev, card, 384, 240, 320, 128)
@@ -2133,6 +2277,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
                                     card)
     phase("pose-only at the init refine", refine_kernel_check, refine_inputs,
           rec)
+    phase("init4000", init4000_phase, dev, card, rec)
     phase("disk-hamlyn", disk_hamlyn, dev, card)
     phase("disk-simulation", disk_simulation, dev, card)
     phase("collapse", collapse_phase, dev, card)
@@ -2165,6 +2310,9 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
+    from nrslam_tpu_torch.utils import profiler
+    print(f"[card] {profiler.GPU_FIELDS}: {profiler.gpu_header()} (SM clock "
+          "current / max, idle)")
 
     t_start = time.perf_counter()
     kernels.library()

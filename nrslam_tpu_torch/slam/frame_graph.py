@@ -56,13 +56,14 @@ def _wrappers():
             "bundle_adjustment_cuda": bundle_adjustment_cuda}
 
 
-def _globals() -> dict:
+def wrapper_globals() -> dict:
     """(module name, attribute) -> value of every counted or handle global."""
     return {(m, a): getattr(mod, a) for m, mod in _wrappers().items()
             for a in _COUNTS + _HANDLES[m]}
 
 
-def _set_globals(values: dict) -> None:
+def set_wrapper_globals(values: dict) -> None:
+    """Set the globals ``values`` names (as ``wrapper_globals`` keys them)."""
     mods = _wrappers()
     for (m, a), v in values.items():
         setattr(mods[m], a, v)
@@ -130,7 +131,7 @@ class FrameGraph:
                 raise ValueError("FrameGraph: expected tensors on one CUDA "
                                  f"device, got {x.device} (the CPU runs "
                                  "system.frame_step)")
-        saved = _globals()
+        saved = wrapper_globals()
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -143,7 +144,7 @@ class FrameGraph:
             del scratch
             torch.cuda.synchronize(dev)
             for kf in (False, True):
-                before = _globals()
+                before = wrapper_globals()
                 # The capture empties the allocator's cache first too: what
                 # is reserved after it beyond this is the graph's pool.
                 torch.cuda.empty_cache()
@@ -157,7 +158,7 @@ class FrameGraph:
                 self.capture_s[kf] = time.perf_counter() - t0
                 self.pool_bytes[kf] = (torch.cuda.memory_reserved(dev)
                                        - reserved)
-                after = _globals()
+                after = wrapper_globals()
                 self.launches[kf] = {k: after[k] - before[k] for k in after
                                      if k[1] in _COUNTS}
                 self._handles[kf] = {k: v for k, v in after.items()
@@ -165,7 +166,7 @@ class FrameGraph:
                                      and v is not before[k]}
                 self._graphs[kf] = graph
         finally:
-            _set_globals(saved)
+            set_wrapper_globals(saved)
 
     def step(self, state, gray, mask, make_keyframe: bool):
         """``system.frame_step(state, gray, mask, cam, config,
@@ -182,9 +183,10 @@ class FrameGraph:
         self.mask.copy_(mask)
         self._graphs[kf].replay()
         self.replays += 1
-        counts = _globals()
-        _set_globals({k: counts[k] + n for k, n in self.launches[kf].items()})
-        _set_globals(self._handles[kf])
+        counts = wrapper_globals()
+        set_wrapper_globals({k: counts[k] + n
+                             for k, n in self.launches[kf].items()})
+        set_wrapper_globals(self._handles[kf])
         new_state, result = tree.unpack(self.buf.clone(), self.packing)
         self._last = new_state
         return new_state, result

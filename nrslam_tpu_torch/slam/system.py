@@ -147,6 +147,19 @@ def frame_step(state, gray, mask, cam: cameras.Camera, config: Config,
     return state, result
 
 
+def ransac_draws(config: init_mod.InitializerConfig, seed: int, count: int,
+                 device):
+    """The RANSAC draws (perm [F], gumbel [H, F]) of init attempt ``count``
+    from a CPU ``torch.Generator`` seeded from (``seed``, ``count``), moved
+    to ``device``: every device gets the same samples."""
+    g = torch.Generator(device="cpu").manual_seed((seed << 32) | count)
+    perm = torch.randperm(config.max_features, generator=g)
+    u = torch.rand((config.n_hypotheses, config.max_features), generator=g)
+    gumbel = -torch.log(-torch.log(
+        torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+    return perm.to(device), gumbel.to(device)
+
+
 class System:
     """Stateful driver: host sequencing over device steps on the camera's
     device. RANSAC draws come from a CPU ``torch.Generator`` seeded from
@@ -209,14 +222,7 @@ class System:
 
     def _draws(self, count: int):
         """(perm [F], gumbel [H, F]) of init attempt ``count``."""
-        cfg = self.init_config
-        g = torch.Generator(device="cpu").manual_seed(
-            (self.seed << 32) | count)
-        perm = torch.randperm(cfg.max_features, generator=g)
-        u = torch.rand((cfg.n_hypotheses, cfg.max_features), generator=g)
-        gumbel = -torch.log(-torch.log(
-            torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
-        return perm.to(self.device), gumbel.to(self.device)
+        return ransac_draws(self.init_config, self.seed, count, self.device)
 
     # -- main entry points --------------------------------------------------
 

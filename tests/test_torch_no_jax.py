@@ -29,6 +29,9 @@ parallel = {"nrslam_tpu_torch.parallel." + m for m in (
     "solve_shard", "ba_points")}
 assert parallel <= set(names), sorted(parallel - set(names))
 assert "nrslam_tpu_torch.slam.frame_graph" in names
+tools = {"nrslam_tpu_torch.profile_" + m for m in (
+    "stages", "device", "mapping", "scale")}
+assert tools <= set(names), sorted(tools - set(names))
 import multiprocessing
 import torch.distributed as dist
 assert not dist.is_initialized(), "an import started a process group"
