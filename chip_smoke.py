@@ -160,10 +160,11 @@ prints its seconds):
      landmarks <= 2e-3, RMSE < 0.2x its start), and a window with 5 of 8
      valid; the row-sharded frame_step (each rank builds the seeded
      problem with only its [P/4, P] graph rows) at 640x480/256 new
-     keypoints, P=768 for 6 frames with keyframes at frames 3 and 5 and
-     P=4096 for 3 frames with a keyframe at frame 3 (dryrun.FRAME_RUNS: at
-     P=768 the second keyframe's window holds 3 valid keyframes, so its
-     BA's result is applied), the pose-only and joint
+     keypoints, P=768 for 6 frames with keyframes at frames 3 and 5
+     (dryrun.FRAME_RUNS' first entry, GLOO_FRAME_P: the second keyframe's
+     window holds 3 valid keyframes, so its BA's result is applied; the
+     P=4096 entry runs in parallel/multicard.py, replayed on four NCCL
+     cards under these gates), the pose-only and joint
      solves and the keyframe's window BA partitioned (the keyframe ring's
      columns on their rank, the temporal ring replicated, neither
      gathered), against system.frame_step in this process with
@@ -190,13 +191,24 @@ prints its seconds):
      dryrun.PREDICTED; the frame raises unless every rank's state
      checksum equals the others' after each frame);
      then the keyframe-sharded BA in this process on NCCL with world size
-     1 under the same gates. Prints ms/frame of the sharded and the
+     1 under the same gates, and [shard-graph] on that group: one
+     all_reduce captured in a CUDA graph and replayed, then
+     dryrun.FRAME_RUNS replayed by a parallel.frame_graph_shard
+     .ShardFrameGraph (both frame kinds captured, the phase kernels and
+     collectives inside), every replayed frame bit for bit the eager
+     frame_step_sharded on the same group with the same launches, phase
+     launches, collectives and payload bytes, one replay a frame and one
+     graph launch in a profiled replay of each kind, and the final state
+     bit for bit the 4 gloo ranks'; it prints replayed against eager
+     ms/frame by kind, build and capture seconds, pools, peak allocated
+     and the partitioned routes' device ms inside a replayed frame.
+     Prints ms/frame of the sharded and the
      single-process frame (four processes share the card: a
      measurement), each rank's collective payload bytes per frame beside
      the whole-state gather's (worked out from its gathers) and the
      prediction, the partitioned solves' share of them (collectives and
-     bytes) beside theirs, and at P=4096 each rank's peak allocated memory
-     over the frames beside the single process's and the prediction.
+     bytes) beside theirs, and each rank's peak allocated memory over the
+     frames beside the single process's.
 The line before the last is the kernels' JSON record (launches on the main
 path, error, times, bound: ``ms`` is the wrapper call, ``kernel_ms`` the
 bare launch on prepared inputs); the sharded routes' entries count rank
@@ -1434,7 +1446,7 @@ def counts_and_handles():
     objects), as frame_graph.wrapper_globals names them."""
     from nrslam_tpu_torch.slam import frame_graph
 
-    return {k: (v if k[1] == "launches" else id(v))
+    return {k: (id(v) if frame_graph.is_handle(k) else v)
             for k, v in frame_graph.wrapper_globals().items()}
 
 
@@ -2143,14 +2155,23 @@ def _np(tree):
     return convert.to_numpy(tree)
 
 
+# The sharded frames [parallel]'s gloo ranks run (dryrun.FRAME_RUNS' P).
+# P=4096's moved to parallel/multicard.py, which replays it on four NCCL
+# cards under the same gates and dryrun.PREDICTED, to keep the script
+# within its 300 s; [shard-graph] holds its P=4096 replays to the sharded
+# frame run as one rank.
+GLOO_FRAME_P = (768,)
+
+
 def parallel_phase(dev, card: str, world, tmp: str):
     """[parallel]: the 4 ranks of ``world`` (spawned on this one card at the
     script's start: gloo over a FileStore in ``tmp``,
     ``parallel.dryrun.World``) run the pose normal equations sharded over
     points, the sharded pose-only and joint solves, the keyframe-sharded BA
-    and the row-sharded frame at P=768 and P=4096; then the
+    and the row-sharded frame at ``GLOO_FRAME_P``; then the
     keyframe-sharded BA once more in this process on NCCL with world size
-    1. Each is held to its single-process counterpart on the card. Returns
+    1 and [shard-graph] (``shard_graph_step``). Each is held to its
+    single-process counterpart on the card. Returns
     rank 0's phase launches of the sharded solves over the frames."""
     import torch.distributed as dist
 
@@ -2212,14 +2233,19 @@ def parallel_phase(dev, card: str, world, tmp: str):
 
     # The row-sharded frame against the single-process frame: each
     # rank builds the seeded problem with its own graph rows. The
-    # ranks share the card: a measurement, no speed-up expected.
+    # ranks share the card: a measurement, no speed-up expected. Only
+    # GLOO_FRAME_P here: the rest of FRAME_RUNS runs in multicard.
     launches = {"pose_only_shard": 0, "pose_deformation_shard": 0,
                 "bundle_adjustment_shard": 0}
+    gloo_frames = {}
     for P, kfs in dryrun.FRAME_RUNS:
+        if P not in GLOO_FRAME_P:
+            continue
         r = dryrun.frames_against_single(world, dev, P, kfs,
                                          gather_graph=P <= 768)
         dryrun.report_frames("[parallel]", card, r, P, kfs,
                              dryrun.PREDICTED[P])
+        gloo_frames[P] = r
         for k, v in r["launches"][0].items():
             route = k.split(".")[0]
             if route in launches and not k.endswith(".calls"):
@@ -2254,9 +2280,101 @@ def parallel_phase(dev, card: str, world, tmp: str):
             f"kf-sharded BA on {dist.get_backend()} world size 1",
             dryrun.ba_against_plain(outs, cam_b, poses0, L0, prob, plain),
             1, L0, prob)
+        shard_graph_step(card, mesh, gloo_frames)
     finally:
         dist.destroy_process_group()
     return launches
+
+
+def shard_graph_step(card: str, mesh, gloo_frames: dict):
+    """[shard-graph], on the NCCL group of world size 1 that [parallel]
+    opens in this process: one all_reduce captured in a CUDA graph and
+    replayed, then ``dryrun.FRAME_RUNS`` replayed by a
+    ``parallel.frame_graph_shard.ShardFrameGraph`` (``dryrun
+    .captured_frames``): every replayed frame bit for bit the eager
+    ``frame_step_sharded`` on the same group (shard and result), with the
+    same launches, shard phase launches, collectives and payload bytes; one
+    replay a frame and, in a profiled replay of each kind, one graph launch;
+    the launches as the frames dictate; and the gathered final state and
+    n_tracked_3d bit for bit the 4 gloo ranks' frames of [parallel]
+    (``gloo_frames``: P -> its readings), or where they did not run
+    (P=4096, ``GLOO_FRAME_P``) the sharded frame run as one rank, whose
+    bits n ranks give. Prints replayed against eager
+    ms/frame by kind, build and capture seconds, pool bytes, peak
+    allocated, and the partitioned routes' device ms inside a replayed
+    frame (P=768)."""
+    import torch.distributed as dist
+
+    from nrslam_tpu_torch.parallel import dryrun, frame_graph_shard
+
+    backend, n = dist.get_backend(mesh.group), mesh.world_size
+    want = frame_graph_shard.check_collective_capture(mesh)
+    print(f"[shard-graph] one all_reduce on {backend} world size {n} "
+          f"captured after a doubling in one CUDA graph and replayed: "
+          f"{want} on every element (as expected)")
+    for P, kfs in dryrun.FRAME_RUNS:
+        t0 = time.perf_counter()
+        rec = dryrun.TASKS["captured_frames"](mesh, P, kfs, P <= 768,
+                                              P == 768)
+        wall = time.perf_counter() - t0
+        eager = rec["eager"]
+        same_counts = (rec["launches_per_frame"] == eager["launches"]
+                       and all(rec[k] == eager[k] for k in eager
+                               if k not in ("ms", "launches")))
+        ref, label = gloo_frames.get(P), "the 4 gloo ranks' of [parallel]"
+        if ref is None:
+            one, n3d, _ = dryrun.one_rank_frames(mesh.device, P, kfs)
+            ref = {"state": one._replace(refs=None, graph=(
+                       one.graph if rec["state"].graph is not None
+                       else None)),
+                   "n_tracked_3d": n3d}
+            label = "the sharded frame run as one rank (no group)"
+        like_ref = (rec["n_tracked_3d"] == ref["n_tracked_3d"]
+                    and dryrun._same_leaves(rec["state"], ref["state"]))
+        launches_ok = rec["launches"] == dryrun.frame_launches(kfs)
+        kinds = (dryrun.ms_by_kind(rec["ms"], kfs),
+                 dryrun.ms_by_kind(eager["ms"], kfs))
+        print(f"[shard-graph] P={P} {len(kfs)} frames (keyframes at "
+              f"{[i + 1 for i, k in enumerate(kfs) if k]}) on {card}, "
+              f"{backend} world size {n}: every replayed frame bit for bit "
+              f"the eager frame_step_sharded (shard, n_tracked_3d, LOST): "
+              f"{rec['same_as_eager']}; launches, shard phase launches, "
+              f"collectives and payload bytes per frame as eager: "
+              f"{same_counts}; replays {rec['replays']} for {len(kfs)} "
+              f"frames; launches as the frames dictate: {launches_ok}; the "
+              f"gathered state and n_tracked_3d {rec['n_tracked_3d']} bit "
+              f"for bit {label}: {like_ref}")
+        print(f"[shard-graph] P={P} ms/frame by kind, medians (non-keyframe, "
+              f"keyframe): replayed {kinds[0]}, eager {kinds[1]} (replayed "
+              f"{[round(x, 2) for x in rec['ms']]}, eager "
+              f"{[round(x, 2) for x in eager['ms']]}); build "
+              f"{rec['build_s']:.3f} s, captures "
+              f"{rec['capture_s'][False]:.3f} / {rec['capture_s'][True]:.3f} "
+              f"s, pools {rec['pool_bytes'][False]} / "
+              f"{rec['pool_bytes'][True]} B, peak allocated "
+              f"{rec['peak_bytes'] / 1e6:.2f} MB (resident "
+              f"{rec['resident_bytes'] / 1e6:.2f} MB; both chains and the "
+              f"graphs); payload bytes per frame {rec['bytes']}; "
+              f"{wall:.2f} s in all")
+        graph_launches = []
+        for kf, rd in sorted(rec.get("profile", {}).items()):
+            label = "keyframe" if kf else "non-keyframe"
+            graph_launches.append(rd["host"].get("cudaGraphLaunch", 0))
+            routes = {k: (round(v[0], 4), v[1]) if k != "complete" else v
+                      for k, v in rd["routes"].items()}
+            print(f"[shard-graph] P={P} one profiled replay, {label}: "
+                  f"{rd['kernels']} kernels + {rd['copies']} copies, "
+                  f"{rd['busy_ms']:.2f} ms of device time, wall "
+                  f"{rd['wall_ms']:.2f} ms, host launch calls {rd['host']}, "
+                  f"NCCL kernels (device ms, count) {rd['nccl']}; "
+                  f"the partitioned routes' phase kernels (device ms, "
+                  f"launches): {routes}")
+        ok = (all(rec["same_as_eager"]) and same_counts and like_ref
+              and launches_ok and rec["replays"] == len(kfs)
+              and all(g == 1 for g in graph_launches))
+        if not ok:
+            raise AssertionError(f"[shard-graph] P={P}: the replayed "
+                                 "sharded frames differ from eager")
 
 
 def run_phases(phase, dev, card: str, world, tmp: str):

@@ -8,8 +8,9 @@ joined in one process group through a ``FileStore`` in a fresh directory,
 each with one CPU thread: gloo, every rank on ``device``; or NCCL, rank r
 on card r (NCCL refuses several ranks on one card). It keeps them for as
 many ``run`` calls as the caller makes:
-``run(task, *args)`` runs ``TASKS[task](mesh, *args)`` on every rank and
-returns each rank's result. Arguments and results are numpy
+``run(task, *args)`` runs ``TASKS[task](mesh, *args)`` (or a
+``module:function`` the rank imports) on every rank and returns each
+rank's result. Arguments and results are numpy
 trees (``convert.to_numpy`` of port structures). A rank that fails ends
 the world and its traceback is raised in the caller.
 
@@ -22,6 +23,7 @@ keyframe-sharded BA at K = n.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import queue
 import statistics
@@ -42,6 +44,7 @@ from nrslam_tpu_torch.parallel import (ba_points, ba_shard, multihost,
                                        sharding, solve_shard, tracking_shard)
 from nrslam_tpu_torch.parallel.tracking_shard import frame_step_sharded
 from nrslam_tpu_torch.utils.device import resolve
+from nrslam_tpu_torch.utils.tree import leaves as tree_leaves
 from nrslam_tpu_torch.utils.tree import tree_map
 
 TASKS = {}
@@ -54,6 +57,15 @@ TIMEOUT_S = 300.0
 def task(fn):
     TASKS[fn.__name__] = fn
     return fn
+
+
+def _task(name: str):
+    """``TASKS[name]``, or the function a ``module:function`` name gives,
+    imported on the rank (a caller's own task, such as a test's)."""
+    if name in TASKS:
+        return TASKS[name]
+    module, _, fn = name.partition(":")
+    return getattr(importlib.import_module(module), fn)
 
 
 def to_device(tree, device):
@@ -186,8 +198,76 @@ def kf_sharded_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
     return convert.to_numpy((poses, L)) + (ms,)
 
 
+def _frame_reading(step, mesh):
+    """``step()`` (one sharded frame) timed on the host clock to the end of
+    its device work, with what its collectives carried (``sharding
+    .traffic`` and its shares; feeding the frame is not part of it) and the
+    kernel launches it made. Returns (step's result, the reading)."""
+    _sync(mesh.device)
+    for t in (sharding.traffic, solve_shard.traffic, tracking_shard.traffic):
+        t.reset()
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    out = step()
+    _sync(mesh.device)
+    return out, {"ms": 1e3 * (time.perf_counter() - t0),
+                 "bytes": sharding.traffic.bytes,
+                 "payloads": sharding.traffic.count,
+                 "max_payload": sharding.traffic.max_elements,
+                 "solve_bytes": solve_shard.traffic.bytes,
+                 "solve_payloads": solve_shard.traffic.count,
+                 "gather_bytes": tracking_shard.traffic.bytes,
+                 "launches": {k: v - before[k]
+                              for k, v in _launch_counts().items()}}
+
+
+def shard_routes_in_replay(ours, make_keyframe: bool) -> dict:
+    """Each partitioned route's phase kernels in one profiled replay of the
+    sharded frame (``frame_graph.profile_step``'s ``ours``, in the order
+    they ran): route -> (device ms, launches). A frame runs the pose-only
+    solve, then the joint, then (a keyframe) the window BA, and the joint's
+    and the BA's kernels share their names, so the launches are taken in
+    order, ``shard_phase_launches`` of each. ``complete`` says whether the
+    profiler saw every launch (it can lose a few events in an old
+    process)."""
+    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.solver import pose_only_cuda
+
+    routes = [("pose_only_shard", pose_only_cuda.shard_phase_launches()),
+              ("pose_deformation_shard", pdc.shard_phase_launches())]
+    if make_keyframe:
+        routes.append(("bundle_adjustment_shard", bac.shard_phase_launches()))
+    phases = ("partials_kernel", "relevel_kernel", "init_kernel",
+              "lin_kernel", "step_kernel", "hv_kernel", "cg_kernel")
+    kernels = [ms for name, ms in ours if any(p in name for p in phases)]
+    out, at = {}, 0
+    for route, launches in routes:
+        n = sum(launches.values())
+        mine = kernels[at:at + n]
+        out[route] = (sum(mine), len(mine))
+        at += n
+    out["complete"] = at == len(kernels)
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    """Whether two trees of tensors hold the same leaves bit for bit."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+# The per-frame keys of ``_frame_reading`` that ``_run_frames`` lists.
+_FRAME_KEYS = ("ms", "bytes", "payloads", "max_payload", "solve_bytes",
+               "solve_payloads", "gather_bytes")
+
+
 def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
-                gather_graph: bool):
+                gather_graph: bool, captured: bool = False,
+                profile: bool = False):
     """``frame_step_sharded`` from the rank's shard ``local`` over the numpy
     ``frames`` (``keyframes`` flags them). Per frame: n_tracked_3d, the
     LOST flag, ms, the bytes, payloads and largest payload (elements) of
@@ -197,7 +277,21 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
     the frames (``max_memory_allocated`` from the resident state,
     ``resident``). Rank 0 returns the whole final state (a gather after
     the frames; without the KLT references, and with the graph only when
-    ``gather_graph``)."""
+    ``gather_graph``).
+
+    ``captured``: the frames are replays of a
+    ``frame_graph_shard.ShardFrameGraph`` built from ``local`` and the
+    first frame (its ``build_s``, ``capture_s`` and ``pool_bytes`` by
+    kind), and each frame also runs eagerly from its own chain first:
+    ``eager`` holds the eager frames' per-frame readings (launches per
+    frame too, as ``launches_per_frame`` for the replays) and
+    ``same_as_eager`` per frame whether the replay's state and result
+    equal the eager frame's bit for bit; ``replays`` the graph's replays.
+    The peak then covers both chains and the build. ``profile`` (with
+    ``captured``): after the frames, one more replay of each kind from the
+    last state under ``torch.profiler`` (``frame_graph.profile_step``:
+    ``profile[kf]``, with ``shard_routes_in_replay``'s ``routes``)."""
+    from nrslam_tpu_torch.parallel.frame_graph_shard import ShardFrameGraph
     from nrslam_tpu_torch.parallel.tracking_shard import state_axes
 
     mask = multihost.replicate_frame(mesh, mask)
@@ -206,32 +300,59 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
         torch.cuda.synchronize(mesh.device)
         torch.cuda.reset_peak_memory_stats(mesh.device)
         resident = torch.cuda.memory_allocated(mesh.device)
-    before = _launch_counts()
-    out = {k: [] for k in ("n_tracked_3d", "lost", "ms", "bytes",
-                           "payloads", "max_payload", "graph_shapes",
-                           "solve_bytes", "solve_payloads", "gather_bytes")}
+    out = {k: [] for k in _FRAME_KEYS + (
+        "n_tracked_3d", "lost", "graph_shapes", "launches_per_frame")}
+
+    def eager_step(s, gray, kf):
+        return frame_step_sharded(mesh, s, gray, mask, cam, config, kf)
+
+    step = eager_step
+    if captured:
+        eager = local
+        out["eager"] = {k: [] for k in _FRAME_KEYS + ("launches",)}
+        out["same_as_eager"] = []
+        fg = ShardFrameGraph(local, multihost.replicate_frame(mesh, frames[0]),
+                             mask, cam, config, mesh)
+        out.update(build_s=fg.build_s, capture_s=fg.capture_s,
+                   pool_bytes=fg.pool_bytes)
+
+        def step(s, gray, kf):
+            return fg.step(s, gray, mask, kf)
+
     for frame, kf in zip(frames, keyframes):
         gray = multihost.replicate_frame(mesh, frame)
-        _sync(mesh.device)
-        sharding.traffic.reset()
-        solve_shard.traffic.reset()
-        tracking_shard.traffic.reset()
-        t0 = time.perf_counter()
-        local, res = frame_step_sharded(mesh, local, gray, mask, cam, config,
-                                        bool(kf))
-        _sync(mesh.device)
-        out["ms"].append(1e3 * (time.perf_counter() - t0))
-        out["bytes"].append(sharding.traffic.bytes)
-        out["payloads"].append(sharding.traffic.count)
-        out["max_payload"].append(sharding.traffic.max_elements)
-        out["solve_bytes"].append(solve_shard.traffic.bytes)
-        out["solve_payloads"].append(solve_shard.traffic.count)
-        out["gather_bytes"].append(tracking_shard.traffic.bytes)
+        kf = bool(kf)
+        if captured:
+            (eager, eager_res), er = _frame_reading(
+                lambda: eager_step(eager, gray, kf), mesh)
+            for k, v in er.items():
+                out["eager"][k].append(v)
+        (local, res), rd = _frame_reading(lambda: step(local, gray, kf),
+                                          mesh)
+        if captured:
+            out["same_as_eager"].append(_bits_equal((local, res),
+                                                    (eager, eager_res)))
+        for k in _FRAME_KEYS:
+            out[k].append(rd[k])
+        out["launches_per_frame"].append(rd["launches"])
         out["graph_shapes"].append(sorted({tuple(x.shape)
                                            for x in local.graph[:-1]}))
         out["n_tracked_3d"].append(int(res.n_tracked_3d))
         out["lost"].append(bool(res.lost))
-    out["launches"] = {k: v - before[k] for k, v in _launch_counts().items()}
+    out["launches"] = {k: sum(f[k] for f in out["launches_per_frame"])
+                       for k in _launch_counts()}
+    if captured:
+        out["replays"] = fg.replays
+    if captured and profile:
+        from nrslam_tpu_torch.slam.frame_graph import profile_step
+
+        out["profile"] = {}
+        after = local
+        for kf in (False, True):
+            after, _, reading = profile_step(fg, after, gray, mask, kf)
+            reading["routes"] = shard_routes_in_replay(reading.pop("ours"),
+                                                       kf)
+            out["profile"][kf] = reading
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(mesh.device)
                          if cuda else None)
     out["resident_bytes"] = resident if cuda else None
@@ -277,22 +398,38 @@ def frame_placement_round_trip(mesh, state, config, image_shape):
     return convert.to_numpy(whole), {k: tuple(v) for k, v in shapes.items()}
 
 
-@task
-def bench_frames(mesh, max_points, keyframes, gather_graph=False):
+def _bench_shard(mesh, max_points: int, n_frames: int):
     """``bench_problem.build_bench_problem`` (the main path's 640x480 and
     256 new keypoints, seed 0) at ``max_points`` built on the rank, with
     only the rank's rows of the graph (nothing of size [P, P] travels or
-    is built), then ``frame_step_sharded`` over its first
-    ``len(keyframes)`` frames. Returns ``_run_frames``'s record."""
+    is built): (the rank's shard, the first ``n_frames`` frames and the
+    mask as numpy, cam, config)."""
     state, frames, mask, cam, config = bench_problem.build_bench_problem(
         max_points, device=mesh.device,
         rows=sharding.MeshRows(mesh, max_points))
     local = tracking_shard.shard_state(state._replace(graph=None), mesh,
                                        config)._replace(graph=state.graph)
-    frames = [f.cpu().numpy() for f in frames[:len(keyframes)]]
-    del state
-    return _run_frames(mesh, local, frames, mask.cpu().numpy(), cam, config,
+    frames = [f.cpu().numpy() for f in frames[:n_frames]]
+    return local, frames, mask.cpu().numpy(), cam, config
+
+
+@task
+def bench_frames(mesh, max_points, keyframes, gather_graph=False):
+    """``frame_step_sharded`` over the first ``len(keyframes)`` frames of
+    the rank's ``_bench_shard``. Returns ``_run_frames``'s record."""
+    return _run_frames(mesh, *_bench_shard(mesh, max_points, len(keyframes)),
                        keyframes, gather_graph)
+
+
+@task
+def captured_frames(mesh, max_points, keyframes, gather_graph=False,
+                    profile=False):
+    """``bench_frames`` replayed by a ``ShardFrameGraph`` (NCCL), each
+    frame held to the eager frame bit for bit: ``_run_frames``'s record
+    with ``captured`` (and ``profile``)."""
+    return _run_frames(mesh, *_bench_shard(mesh, max_points, len(keyframes)),
+                       keyframes, gather_graph, captured=True,
+                       profile=profile)
 
 
 @task
@@ -704,7 +841,8 @@ def _differences(got, ref) -> dict:
 
 
 def frames_against_single(world, device, max_points: int, keyframes,
-                          gather_graph: bool) -> dict:
+                          gather_graph: bool, captured: bool = False,
+                          profile: bool = False) -> dict:
     """``bench_frames`` on the world's ranks against one process on the
     same seeded problem on ``device``: ``system.frame_step`` with the
     pose-only and joint solves and the window BA by the plain drivers
@@ -729,7 +867,14 @@ def frames_against_single(world, device, max_points: int, keyframes,
     rank, no payload of ``P * P / n`` elements or more, the ranks'
     frames bit for bit those of the one-rank run
     (``_against_one_process``), and the sharded frame's own work bit for
-    bit that of one process (``structure_against_one_process``). The
+    bit that of one process (``structure_against_one_process``).
+    ``captured`` (NCCL): the ranks replay their frames
+    (``captured_frames``) and the readings are the replays'; ``ok`` also
+    wants every replayed frame bit for bit its eager frame on every rank,
+    with the same launches, collectives and bytes (``eager``: the eager
+    frames' ms and bytes; ``build_s``, ``capture_s``, ``pool_bytes`` per
+    rank; ``profile``: rank 0's profiled replays, ``_run_frames``).
+    ``state`` is the gathered final state (numpy). The
     partitioned solves sum in another order than one process, so against
     it the gates are tolerances, not bit equality; a point whose chi2 or
     flow sits at a gate's threshold can flip between any two summation
@@ -737,7 +882,10 @@ def frames_against_single(world, device, max_points: int, keyframes,
     against the deterministic plain drivers, which the sharded frame
     matches on ``FRAME_RUNS``' frames)."""
     device = torch.device(device)
-    outs = world.run("bench_frames", max_points, keyframes, gather_graph)
+    outs = (world.run("captured_frames", max_points, keyframes,
+                      gather_graph, profile) if captured
+            else world.run("bench_frames", max_points, keyframes,
+                           gather_graph))
     whole, whole_n3d, ms, (peak, resident) = _single_frames(
         device, max_points, keyframes)
     with _plain_solves():
@@ -763,11 +911,25 @@ def frames_against_single(world, device, max_points: int, keyframes,
          "graph_shapes": outs[0]["graph_shapes"],
          "peak_bytes": [o["peak_bytes"] for o in outs],
          "resident_bytes": [o["resident_bytes"] for o in outs],
-         "single_peak_bytes": peak, "single_resident_bytes": resident}
+         "single_peak_bytes": peak, "single_resident_bytes": resident,
+         "keyframes": [bool(k) for k in keyframes], "state": got}
     want = frame_launches(keyframes)
     r["want_launches"] = want
     g = FRAME_GATES
-    r["ok"] = (same and structure["exact"] and r["n_tracked_3d"] == n3d
+    if captured:
+        r.update(same_as_eager=[o["same_as_eager"] for o in outs],
+                 eager=outs[0]["eager"],
+                 build_s=[o["build_s"] for o in outs],
+                 capture_s=[o["capture_s"] for o in outs],
+                 pool_bytes=[o["pool_bytes"] for o in outs],
+                 profile=outs[0].get("profile"))
+        r["replays_as_eager"] = all(
+            all(o["same_as_eager"]) and o["launches_per_frame"]
+            == o["eager"]["launches"] and all(
+                o[k] == o["eager"][k] for k in _FRAME_KEYS if k != "ms")
+            for o in outs)
+    r["ok"] = (r.get("replays_as_eager", True)
+               and same and structure["exact"] and r["n_tracked_3d"] == n3d
                and r["dt"] <= g["dt"]
                and r["dpos"] <= g["dpos"] and r["agree"] >= g["agree"]
                and r["kf_valid_equal"] and r["dkf_pose"] <= g["dt"]
@@ -867,6 +1029,56 @@ def structure_against_one_process(device, max_points: int,
             "n_tracked_3d": n3d,
             "ba_applied": int(mine.kf_valid.sum()) >= 3, "P": max_points,
             "keyframes": [i + 1 for i, k in enumerate(keyframes) if k]}
+
+
+def window_against_one_process(world, device, max_points: int,
+                               keyframes) -> dict:
+    """The sharded frame with an applied window BA, replayed on the world's
+    ranks (``captured_frames``, NCCL) and held as
+    ``structure_against_one_process`` holds one process, not to
+    ``FRAME_GATES``: every replay bit for bit its eager frame on every
+    rank, the ranks' final state and n_tracked_3d bit for bit the sharded
+    frame run as one rank (``_against_one_process``: the write-back of the
+    applied BA into the ranks' ring columns), and the frame's own work with
+    one process's solves bit for bit one process's. n_tracked_3d of one
+    process with the plain drivers beside it is a reading: a point at a
+    gate's threshold can flip between the two summation orders."""
+    device = torch.device(device)
+    outs = world.run("captured_frames", max_points, keyframes, False)
+    got = outs[0]
+    structure = structure_against_one_process(device, max_points, keyframes)
+    with _plain_solves():
+        _, plain_n3d, _, _ = _single_frames(device, max_points, keyframes)
+    return {"P": max_points, "n": world.n,
+            "keyframes": [i + 1 for i, k in enumerate(keyframes) if k],
+            "n_tracked_3d": got["n_tracked_3d"],
+            "plain_n_tracked_3d": plain_n3d,
+            "replays_as_eager": all(all(o["same_as_eager"]) for o in outs),
+            "same_as_one_process": _against_one_process(
+                got, device, max_points, keyframes),
+            "structure_exact": structure["exact"],
+            "ba_applied": int(got["state"].kf_valid.sum()) >= 3,
+            "ms": got["ms"], "eager_ms": got["eager"]["ms"]}
+
+
+def report_window(tag: str, r: dict):
+    """Prints ``window_against_one_process``'s readings ``r`` as a ``tag``
+    line, and raises AssertionError unless every gate holds."""
+    print(f"{tag} sharded frame P={r['P']} replayed over {r['n']} ranks, "
+          f"keyframes at frames {r['keyframes']}: window BA applied "
+          f"{r['ba_applied']}; every replay bit for bit its eager frame: "
+          f"{r['replays_as_eager']}; the ranks' state and n_tracked_3d "
+          f"{r['n_tracked_3d']} bit for bit the sharded frame as one rank: "
+          f"{r['same_as_one_process']}; its own work with one process's "
+          f"solves bit for bit one process's: {r['structure_exact']}; one "
+          f"process with the plain drivers (a reading): n_tracked_3d "
+          f"{r['plain_n_tracked_3d']}; ms/frame replayed "
+          f"{[round(x, 2) for x in r['ms']]}, eager "
+          f"{[round(x, 2) for x in r['eager_ms']]}")
+    if not (r["ba_applied"] and r["replays_as_eager"]
+            and r["same_as_one_process"] and r["structure_exact"]):
+        raise AssertionError(f"{tag} sharded frame P={r['P']} with an "
+                             "applied window BA outside its gates")
 
 
 def report_structure(tag: str, r: dict):
@@ -972,6 +1184,14 @@ def frame_gather_bytes(config, image_shape) -> int:
                        tracking_shard.gather_axes(config, image_shape))
 
 
+def ms_by_kind(ms, keyframes) -> tuple:
+    """(median ms of the non-keyframes, of the keyframes), None where a
+    kind has no frame; rounded to 2 decimals for printing."""
+    return tuple(round(statistics.median(x), 2) if x else None for x in (
+        [t for t, k in zip(ms, keyframes) if not k],
+        [t for t, k in zip(ms, keyframes) if k]))
+
+
 def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
                   predicted=None):
     """Prints ``frames_against_single``'s readings ``r`` as ``tag`` lines
@@ -1028,11 +1248,35 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
           f"{'equal' if same else r['launches']}; wanted "
           f"{r['want_launches']}"
           f"); graph leaves per rank {r['graph_shapes'][-1]}; "
-          f"ms/frame sharded {statistics.median(r['ms']):.2f} (frames "
+          f"ms/frame sharded{' replayed' if 'eager' in r else ''} "
+          f"{statistics.median(r['ms']):.2f} (frames "
           f"{[round(x, 2) for x in r["ms"]]}), single process with the "
           f"kernels "
           f"{statistics.median(r['single_ms']):.2f} (frames "
           f"{[round(x, 2) for x in r['single_ms']]})")
+    if "eager" in r:
+        mb_pool = [{int(k): round(v / mb, 2) for k, v in p.items()}
+                   for p in r["pool_bytes"]]
+        cap = [(round(c[False], 3), round(c[True], 3))
+               for c in r["capture_s"]]
+        print(f"{tag} P={P} replayed (ShardFrameGraph) against eager "
+              f"ms/frame by kind, medians (non-keyframe, keyframe): "
+              f"replayed {ms_by_kind(r['ms'], keyframes)}, eager "
+              f"{ms_by_kind(r['eager']['ms'], keyframes)} (eager frames "
+              f"{[round(x, 2) for x in r['eager']['ms']]}); every replayed "
+              f"frame bit for bit its eager frame on every rank, with the "
+              f"same launches, collectives and bytes: "
+              f"{r['replays_as_eager']}; per rank: build s "
+              f"{[round(x, 3) for x in r['build_s']]}, capture s "
+              f"(non-keyframe, keyframe) "
+              f"{cap}, pool MB by kind (0 non-keyframe, 1 keyframe) {mb_pool}")
+    for kf, rd in sorted((r.get("profile") or {}).items()):
+        print(f"{tag} P={P} rank 0, one profiled replay of the "
+              f"{'keyframe' if kf else 'non-keyframe'}: {rd['kernels']} "
+              f"kernels, {rd['busy_ms']:.2f} ms of device time, wall "
+              f"{rd['wall_ms']:.2f} ms; NCCL kernels (device ms, count) "
+              f"{rd['nccl']}; the partitioned routes' phase kernels "
+              f"{rd['routes']}")
     whole = whole_gather_frame_bytes(
         Config(max_points=P, max_new_keypoints=256), (480, 640))
     print(f"{tag} P={P} collective payload bytes per frame per rank "
@@ -1098,7 +1342,7 @@ def _rank_main(rank, n, device, backend, store_path, inbox, outbox):
                 break
             name, args = msg
             try:
-                out = TASKS[name](mesh, *args)
+                out = _task(name)(mesh, *args)
             except BaseException:
                 outbox.put((rank, False, traceback.format_exc(), None))
                 break

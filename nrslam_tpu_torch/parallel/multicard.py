@@ -15,10 +15,16 @@ ranks' point blocks at W=5, P=768 and 4096 against the whole-solver BA
 kernel (3e-5, bit for bit against one process) and the row-sharded frame
 at 640x480 with 256 new keypoints (``dryrun.FRAME_RUNS``: P=768 for 6
 frames, keyframes at frames 3 and 5, and P=4096 for 3, a keyframe at
-frame 3), with ``dryrun``'s readings and gates (``report_ba``,
-``report_solves``, ``report_points_ba``, ``report_frames``; with 4 ranks
-the bytes against ``dryrun.PREDICTED``). Prints the cards' names and
-power limits first, and raises at the first check outside its gates. A
+frame 3) replayed by each rank's ``frame_graph_shard.ShardFrameGraph``,
+every replay bit for bit the rank's eager frame, with ``dryrun``'s
+readings and gates (``report_ba``, ``report_solves``,
+``report_points_ba``, ``report_frames`` on the replays: ms/frame eager and
+replayed by kind, each rank's build and capture seconds and pools, at
+P=768 rank 0's profiled replays with their NCCL kernels' device time; with 4
+ranks the bytes against ``dryrun.PREDICTED``), and at P=4096 a window of 3
+keyframes (frames 2 and 3) whose BA applies, replayed, held bit for bit
+to one process (``report_window``). Prints the cards' names and power
+limits first, and raises at the first check outside its gates. A
 measurement on several cards; ``chip_smoke.py`` needs one.
 """
 
@@ -77,9 +83,13 @@ def main(argv) -> int:
                     world, dev, 5, P), n, 3e-5)
         for P, kfs in dryrun.FRAME_RUNS:
             r = dryrun.frames_against_single(world, dev, P, kfs,
-                                             gather_graph=P <= 768)
+                                             gather_graph=P <= 768,
+                                             captured=True,
+                                             profile=P == 768)
             dryrun.report_frames("[multicard]", f"{n} cards", r, P, kfs,
                                  dryrun.PREDICTED[P] if n == 4 else None)
+        dryrun.report_window("[multicard]", dryrun.window_against_one_process(
+            world, dev, 4096, (False, True, True)))
     print("[multicard] ok")
     return 0
 

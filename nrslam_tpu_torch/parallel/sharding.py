@@ -78,6 +78,15 @@ class Traffic:
     def reset(self):
         self.count = self.bytes = self.max_elements = 0
 
+    def snapshot(self) -> tuple:
+        """(count, bytes, largest payload's elements), for ``restore``."""
+        return self.count, self.bytes, self.max_elements
+
+    def restore(self, snap: tuple) -> None:
+        """Set the counts a ``snapshot`` took (a captured frame's build
+        restores them; each replay adds what its capture recorded)."""
+        self.count, self.bytes, self.max_elements = snap
+
     def add(self, x):
         self.count += 1
         self.bytes += x.numel() * x.element_size()
@@ -226,12 +235,24 @@ class MeshRows(graph_mod.Rows):
         return x[torch.clamp(idx, max=x.shape[0] - 1)]
 
 
-def same_on_ranks(mesh: Mesh, x) -> bool:
-    """Whether every rank holds the same ``x`` (an elementwise MAX of
-    (x, -x) gives each element's largest and smallest value)."""
+def extremes(mesh: Mesh, x):
+    """[2, ...]: each element's largest value over the ranks and the
+    negated smallest (one MAX of (x, -x)), the device half of
+    ``same_on_ranks``: no host read, so a CUDA graph can capture it."""
     v = x.to(torch.float64 if x.is_floating_point() else torch.int64)
-    hi, neg_lo = all_reduce_max(mesh, torch.stack([v, -v]))[0]
-    return bool(torch.equal(hi, -neg_lo))
+    return all_reduce_max(mesh, torch.stack([v, -v]))[0]
+
+
+def agree(ext) -> bool:
+    """The host half of ``same_on_ranks``: whether ``extremes``' largest
+    and smallest values are equal everywhere. Every rank holds the same
+    ``ext``, so every rank reads the same answer."""
+    return bool(torch.equal(ext[0], -ext[1]))
+
+
+def same_on_ranks(mesh: Mesh, x) -> bool:
+    """Whether every rank holds the same ``x``."""
+    return agree(extremes(mesh, x))
 
 
 def digest(tree):

@@ -131,14 +131,22 @@ def _slots(mesh: Mesh, full, axes):
     return mine._replace(graph=full.graph)
 
 
-def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
-                       cam: cameras.Camera, config: Config,
-                       make_kf: bool):
-    """``slam.system.frame_step`` on this rank's shard of the state
-    (``shard_state``: the graph's leaves are the rank's ``[P / n, P]``
-    rows, the keyframe ring's its ``[K, P / n]`` columns). Returns (the
-    rank's shard of the new state, the frame's ``tracking.FrameResult``,
-    the same on every rank)."""
+def checked_leaves(state):
+    """The tree of ``state``'s leaves that every rank holds the same after
+    a frame, which step 7 compares: all but the graph rows, the keyframe
+    ring's columns and the KLT references (None in the gathered state)."""
+    return state._replace(refs=None, graph=None,
+                          **{f: None for f in KF_RING})
+
+
+def frame_step_unchecked(mesh: Mesh, local_state: SlamState, gray, mask,
+                         cam: cameras.Camera, config: Config,
+                         make_kf: bool):
+    """``frame_step_sharded`` without its host read: returns (the rank's
+    shard of the new state, the ``tracking.FrameResult``, the checksum's
+    ``sharding.extremes`` [2, L]), and leaves the comparison
+    (``sharding.agree``) to the caller. Device work and collectives only,
+    so a CUDA graph can capture it on an NCCL group."""
     axes = gather_axes(config, tuple(gray.shape))
     solves = solve_shard.mesh_solves(mesh)
     rows = sharding.MeshRows(mesh, config.max_points)
@@ -172,10 +180,7 @@ def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
     lost = full.lost | (n3d < config.min_tracked_exit)
     full = mapping_mod.do_mapping(full._replace(lost=lost), cam, config,
                                   make_kf, rows, solves)
-    if not sharding.same_on_ranks(mesh, sharding.digest(full._replace(
-            graph=None, **{f: None for f in KF_RING}))):
-        raise RuntimeError("the ranks computed different states from the "
-                           "same gathered arrays")
+    check = sharding.extremes(mesh, sharding.digest(checked_leaves(full)))
 
     new = _slots(mesh, full, axes)._replace(refs=refs)
     if make_kf:
@@ -184,4 +189,39 @@ def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
     result = tracking.FrameResult(
         n_tracked_3d=torch.where(old.lost, torch.zeros_like(n3d), n3d),
         lost=old.lost | lost)
+    return new, result, check
+
+
+def body(mesh: Mesh, local_state: SlamState, gray, mask,
+         cam: cameras.Camera, config: Config, make_kf: bool, out) -> None:
+    """The captured sharded frame: ``frame_step_unchecked``'s (new shard,
+    result, checksum extremes) written into ``out``, views of the same
+    structure (``out[0]`` may be ``local_state`` itself: every leaf of the
+    new shard is a new tensor, so all reads come before the writes). Runs
+    on any device: the tests call it on CPU buffers."""
+    tree.copy_(out, frame_step_unchecked(mesh, local_state, gray, mask, cam,
+                                         config, make_kf))
+
+
+def check_agreed(check) -> None:
+    """Raise unless the ranks' checksums agree (``sharding.agree`` of a
+    frame's extremes; every rank holds the same extremes, so every rank
+    raises)."""
+    if not sharding.agree(check):
+        raise RuntimeError("the ranks computed different states from the "
+                           "same gathered arrays")
+
+
+def frame_step_sharded(mesh: Mesh, local_state: SlamState, gray, mask,
+                       cam: cameras.Camera, config: Config,
+                       make_kf: bool):
+    """``slam.system.frame_step`` on this rank's shard of the state
+    (``shard_state``: the graph's leaves are the rank's ``[P / n, P]``
+    rows, the keyframe ring's its ``[K, P / n]`` columns). Returns (the
+    rank's shard of the new state, the frame's ``tracking.FrameResult``,
+    the same on every rank); raises on every rank when the ranks'
+    checksums differ."""
+    new, result, check = frame_step_unchecked(mesh, local_state, gray, mask,
+                                              cam, config, make_kf)
+    check_agreed(check)
     return new, result

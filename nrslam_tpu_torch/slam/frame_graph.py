@@ -16,11 +16,16 @@ the frame's kind, and returns a snapshot (one copy of the packed buffer
 into a fresh allocation), so no later replay writes into anything a step
 returned.
 
-The wrappers' launch counts (``pose_only_cuda.launches`` and the joint's
-and BA's) are Python statements that run while a graph is captured, never
-while it replays: the build leaves them as it found them, and every replay
-adds what its capture recorded. The same holds for their ``last_*``
-handles of the device work header.
+The counted globals a capture sets (``wrapper_globals``: the wrappers'
+launch counts, the partitioned routes' calls and phase launches, the
+handles of their last device header, and the collective payload counts of
+``parallel``'s ``Traffic`` objects) are Python statements that run while a
+graph is captured, never while it replays: the build leaves them as it
+found them (``record``), and every replay adds what its capture recorded
+(``add_recorded``). ``KindGraphs`` is what this graph and the sharded
+frame's (``parallel.frame_graph_shard.ShardFrameGraph``) share: the
+packing, the warm-up on a scratch copy on a side stream, one capture per
+kind with its own pool, and the replay with its snapshot.
 
 CUDA tensors only; on a CPU tensor the constructor raises (the CPU runs
 ``system.frame_step``). A capture or a replay that fails raises: nothing
@@ -39,34 +44,112 @@ from nrslam_tpu_torch.slam import tracking
 from nrslam_tpu_torch.slam.state import Config
 from nrslam_tpu_torch.utils import tree
 
-# The wrappers' module globals that a capture sets: launch counts (added to
-# on every replay) and handles of the last launch's device header.
-_COUNTS = ("launches",)
-_HANDLES = {"pose_only_cuda": ("last_lm_steps",),
-            "pose_deformation_cuda": ("last_work",),
-            "bundle_adjustment_cuda": ("last_work",)}
+# The counted module globals a capture sets, by owner: counts (ints added
+# to on every replay), counts by phase (dicts, mutated in place), handles
+# of the last launch's device header, and the owners of a ``traffic``
+# (``sharding.Traffic``: payloads, bytes, largest payload).
+_INTS = ("launches", "shard_calls")
+_DICTS = ("shard_launches",)
+_HANDLES = {"pose_only_cuda": ("last_lm_steps", "shard_last_steps"),
+            "pose_deformation_cuda": ("last_work", "shard_last_work"),
+            "bundle_adjustment_cuda": ("last_work", "shard_last_work")}
+_TRAFFIC = ("sharding", "tracking_shard", "solve_shard")
 
 
-def _wrappers():
+def _owners():
+    from nrslam_tpu_torch.parallel import sharding, solve_shard, tracking_shard
     from nrslam_tpu_torch.solver import (bundle_adjustment_cuda,
                                          pose_deformation_cuda,
                                          pose_only_cuda)
     return {"pose_only_cuda": pose_only_cuda,
             "pose_deformation_cuda": pose_deformation_cuda,
-            "bundle_adjustment_cuda": bundle_adjustment_cuda}
+            "bundle_adjustment_cuda": bundle_adjustment_cuda,
+            "sharding": sharding, "tracking_shard": tracking_shard,
+            "solve_shard": solve_shard}
 
 
 def wrapper_globals() -> dict:
-    """(module name, attribute) -> value of every counted or handle global."""
-    return {(m, a): getattr(mod, a) for m, mod in _wrappers().items()
-            for a in _COUNTS + _HANDLES[m]}
+    """(owner, attribute) -> value of every counted global: ints, copies
+    of the dicts by phase, ``Traffic.snapshot`` tuples under ``traffic``,
+    and the handles themselves (``is_handle``)."""
+    mods = _owners()
+    out = {}
+    for m, handles in _HANDLES.items():
+        for a in _INTS + handles:
+            out[(m, a)] = getattr(mods[m], a)
+        for a in _DICTS:
+            out[(m, a)] = dict(getattr(mods[m], a))
+    for m in _TRAFFIC:
+        out[(m, "traffic")] = mods[m].traffic.snapshot()
+    return out
+
+
+def is_handle(key) -> bool:
+    """Whether a ``wrapper_globals`` key names a handle (not a count)."""
+    return key[1] in _HANDLES.get(key[0], ())
 
 
 def set_wrapper_globals(values: dict) -> None:
-    """Set the globals ``values`` names (as ``wrapper_globals`` keys them)."""
-    mods = _wrappers()
+    """Set the globals ``values`` names (as ``wrapper_globals`` keys them;
+    a dict by phase is updated in place)."""
+    mods = _owners()
     for (m, a), v in values.items():
-        setattr(mods[m], a, v)
+        if a == "traffic":
+            mods[m].traffic.restore(v)
+        elif a in _DICTS:
+            getattr(mods[m], a).update(v)
+        else:
+            setattr(mods[m], a, v)
+
+
+def _zero(key, v):
+    if is_handle(key):
+        return None
+    if key[1] == "traffic":
+        return (0, 0, 0)
+    return dict.fromkeys(v, 0) if isinstance(v, dict) else 0
+
+
+def _moved(v) -> bool:
+    if isinstance(v, dict):
+        return any(v.values())
+    return any(v) if isinstance(v, tuple) else v != 0
+
+
+def record(run):
+    """``run()`` with every counted global started from zero and set back
+    as it was afterwards. Returns (run's result, the counts it made that
+    are not zero, the handles it set)."""
+    saved = wrapper_globals()
+    set_wrapper_globals({k: _zero(k, v) for k, v in saved.items()})
+    try:
+        out = run()
+        after = wrapper_globals()
+    finally:
+        set_wrapper_globals(saved)
+    counts = {k: v for k, v in after.items()
+              if not is_handle(k) and _moved(v)}
+    handles = {k: v for k, v in after.items()
+               if is_handle(k) and v is not None}
+    return out, counts, handles
+
+
+def add_recorded(counts: dict, handles: dict) -> None:
+    """What a replay does to the counted globals: adds ``counts`` (a
+    ``record``; a traffic's largest payload is the larger of the two) and
+    sets ``handles``."""
+    now = wrapper_globals()
+    new = {}
+    for k, v in counts.items():
+        cur = now[k]
+        if k[1] == "traffic":
+            new[k] = (cur[0] + v[0], cur[1] + v[1], max(cur[2], v[2]))
+        elif isinstance(v, dict):
+            new[k] = {p: cur[p] + n for p, n in v.items()}
+        else:
+            new[k] = cur + v
+    set_wrapper_globals(new)
+    set_wrapper_globals(handles)
 
 
 def result_like(state) -> tracking.FrameResult:
@@ -89,26 +172,28 @@ def body(state, gray, mask, cam: cameras.Camera, config: Config,
     tree.copy_(out, (new_state, result))
 
 
-class FrameGraph:
-    """Both kinds of the steady frame captured over static buffers on the
-    card; ``step`` replays one. Built from a state of the shapes it will
-    step (the first steady state after ``bootstrap_map``), the frame's
-    ``gray`` and ``mask``, the camera and the config, which the graphs keep.
+class KindGraphs:
+    """Both kinds of a frame (``make_keyframe`` False and True) captured
+    over static buffers on one card: ``outputs`` (a tree whose first
+    element is the state) packed into one buffer (``views`` into it),
+    ``gray`` and ``mask``. A subclass gives ``_body(views, kf)``, which
+    writes the frame of kind ``kf`` from ``views[0]`` into ``views``, and
+    ``_check()``, which raises where the inputs cannot be captured.
 
-    ``replays`` counts replays; ``launches[kf]`` the wrapper launches the
-    capture of kind ``kf`` recorded (what each replay adds);
+    ``replays`` counts replays; ``launches[kf]`` the counts the capture of
+    kind ``kf`` recorded (``record``: what each replay adds);
     ``pool_bytes[kf]`` the device memory its capture reserved;
     ``kernels[kf]`` the device kernels of one replay of that kind, once
     ``profile_step`` has read them; ``build_s`` / ``capture_s`` the
     seconds of the whole build and of each capture."""
 
-    def __init__(self, state, gray, mask, cam: cameras.Camera,
-                 config: Config):
+    # torch.cuda.graph's capture_error_mode.
+    capture_mode = "global"
+
+    def __init__(self, outputs, gray, mask):
         self.device = gray.device
-        self.cam, self.config = cam, config
-        frame = (state, result_like(state))
-        self.packing = tree.packing(frame)
-        self.buf = tree.pack(frame, self.packing)
+        self.packing = tree.packing(outputs)
+        self.buf = tree.pack(outputs, self.packing)
         self.views = tree.unpack(self.buf, self.packing)
         self.gray = gray.contiguous().clone()
         self.mask = mask.contiguous().clone()
@@ -120,75 +205,100 @@ class FrameGraph:
         self._build()
         self.build_s = time.perf_counter() - t0
 
+    def _body(self, views, kf: bool) -> None:
+        raise NotImplementedError
+
+    def _check(self) -> None:
+        raise NotImplementedError
+
     def _build(self) -> None:
         """Warm up one frame of each kind on a scratch copy of the state on
         a side stream (the kernel library, cached device constants, the
-        cuBLAS handles), then capture both kinds; the static state does
-        not advance, and the wrappers' globals end as they began."""
+        cuBLAS handles, a process group's communicator), then capture both
+        kinds; the static state does not advance, and the counted globals
+        end as they began."""
+        self._check()
         dev = self.device
-        for x in (self.buf, self.gray, self.mask, self.cam.params):
-            if x.device.type != "cuda" or x.device != dev:
-                raise ValueError("FrameGraph: expected tensors on one CUDA "
-                                 f"device, got {x.device} (the CPU runs "
-                                 "system.frame_step)")
-        saved = wrapper_globals()
-        try:
+
+        def warm_up():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 scratch = tree.unpack(self.buf.clone(), self.packing)
                 for kf in (False, True):
-                    body(scratch[0], self.gray, self.mask, self.cam,
-                         self.config, kf, scratch)
+                    self._body(scratch, kf)
             torch.cuda.current_stream(dev).wait_stream(side)
-            del scratch
             torch.cuda.synchronize(dev)
-            for kf in (False, True):
-                before = wrapper_globals()
-                # The capture empties the allocator's cache first too: what
-                # is reserved after it beyond this is the graph's pool.
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    body(self.views[0], self.gray, self.mask, self.cam,
-                         self.config, kf, self.views)
-                torch.cuda.synchronize(dev)
-                self.capture_s[kf] = time.perf_counter() - t0
-                self.pool_bytes[kf] = (torch.cuda.memory_reserved(dev)
-                                       - reserved)
-                after = wrapper_globals()
-                self.launches[kf] = {k: after[k] - before[k] for k in after
-                                     if k[1] in _COUNTS}
-                self._handles[kf] = {k: v for k, v in after.items()
-                                     if k[1] not in _COUNTS
-                                     and v is not before[k]}
-                self._graphs[kf] = graph
-        finally:
-            set_wrapper_globals(saved)
 
-    def step(self, state, gray, mask, make_keyframe: bool):
-        """``system.frame_step(state, gray, mask, cam, config,
-        make_keyframe)`` by replay. Returns (state, FrameResult), a snapshot
-        that no later step writes into."""
+        record(warm_up)
+        for kf in (False, True):
+            # The capture empties the allocator's cache first too: what is
+            # reserved after it beyond this is the graph's pool.
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            graph, self.launches[kf], self._handles[kf] = record(
+                lambda: self._capture(kf))
+            self.capture_s[kf] = time.perf_counter() - t0
+            self.pool_bytes[kf] = torch.cuda.memory_reserved(dev) - reserved
+            self._graphs[kf] = graph
+
+    def _capture(self, kf: bool):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode=self.capture_mode):
+            self._body(self.views, kf)
+        torch.cuda.synchronize(self.device)
+        return graph
+
+    def _replay(self, state, gray, mask, make_keyframe: bool):
+        """Copy ``state`` in unless it is the last snapshot, copy the frame
+        in, replay the graph of its kind, add what its capture recorded.
+        Returns a snapshot of the outputs (one copy of the packed buffer)
+        that no later replay writes into."""
         kf = bool(make_keyframe)
         if gray.shape != self.gray.shape or mask.shape != self.mask.shape:
-            raise ValueError(f"FrameGraph: frame {list(gray.shape)}, mask "
-                             f"{list(mask.shape)}; captured for "
-                             f"{list(self.gray.shape)}")
+            raise ValueError(f"{type(self).__name__}: frame "
+                             f"{list(gray.shape)}, mask {list(mask.shape)}; "
+                             f"captured for {list(self.gray.shape)}")
         if state is not self._last:
             tree.copy_(self.views[0], state)
         self.gray.copy_(gray)
         self.mask.copy_(mask)
         self._graphs[kf].replay()
         self.replays += 1
-        counts = wrapper_globals()
-        set_wrapper_globals({k: counts[k] + n
-                             for k, n in self.launches[kf].items()})
-        set_wrapper_globals(self._handles[kf])
-        new_state, result = tree.unpack(self.buf.clone(), self.packing)
-        self._last = new_state
+        add_recorded(self.launches[kf], self._handles[kf])
+        out = tree.unpack(self.buf.clone(), self.packing)
+        self._last = out[0]
+        return out
+
+
+class FrameGraph(KindGraphs):
+    """Both kinds of the steady frame captured over static buffers on the
+    card; ``step`` replays one. Built from a state of the shapes it will
+    step (the first steady state after ``bootstrap_map``), the frame's
+    ``gray`` and ``mask``, the camera and the config, which the graphs keep
+    (``KindGraphs`` holds the readings)."""
+
+    def __init__(self, state, gray, mask, cam: cameras.Camera,
+                 config: Config):
+        self.cam, self.config = cam, config
+        super().__init__((state, result_like(state)), gray, mask)
+
+    def _check(self) -> None:
+        for x in (self.buf, self.gray, self.mask, self.cam.params):
+            if x.device.type != "cuda" or x.device != self.device:
+                raise ValueError("FrameGraph: expected tensors on one CUDA "
+                                 f"device, got {x.device} (the CPU runs "
+                                 "system.frame_step)")
+
+    def _body(self, views, kf: bool) -> None:
+        body(views[0], self.gray, self.mask, self.cam, self.config, kf, views)
+
+    def step(self, state, gray, mask, make_keyframe: bool):
+        """``system.frame_step(state, gray, mask, cam, config,
+        make_keyframe)`` by replay. Returns (state, FrameResult), a snapshot
+        that no later step writes into."""
+        new_state, result = self._replay(state, gray, mask, make_keyframe)
         return new_state, result
 
 
@@ -199,13 +309,15 @@ _HOST_LAUNCHES = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
                   "cudaMemsetAsync")
 
 
-def profile_step(fg: FrameGraph, state, gray, mask, make_keyframe: bool):
+def profile_step(fg: KindGraphs, state, gray, mask, make_keyframe: bool):
     """``fg.step`` under ``torch.profiler``. Returns (state, result,
     reading): the device kernels of the replay (also kept as
     ``fg.kernels[kf]``), their summed device time in ms (``busy_ms``), the
-    step's host-side launch calls by runtime API name (``host``) and its
-    host wall in ms to the end of its enqueue (``enqueue_ms``) and to the
-    end of the device work (``wall_ms``)."""
+    step's host-side launch calls by runtime API name (``host``), its host
+    wall in ms to the end of its enqueue (``enqueue_ms``) and to the end
+    of the device work (``wall_ms``), the port's own kernels in the order
+    they ran (``ours``: (name, device ms) of each kernel whose name holds
+    ``nrslam``), and NCCL's kernels (``nccl``: device ms, count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(fg.device)
@@ -229,5 +341,13 @@ def profile_step(fg: FrameGraph, state, gray, mask, make_keyframe: bool):
                  if e.device_type == torch.autograd.DeviceType.CPU
                  and e.key in _HOST_LAUNCHES},
         "enqueue_ms": 1e3 * (t1 - t0), "wall_ms": 1e3 * (t2 - t0)}
+    ours = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "nrslam" in e.name)
+    reading["ours"] = [(name, us / 1e3) for _, name, us in ours]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    reading["nccl"] = (sum(e.device_time_total for e in nccl) / 1e3,
+                       sum(e.count for e in nccl))
     fg.kernels[bool(make_keyframe)] = reading["kernels"]
     return out[0], out[1], reading

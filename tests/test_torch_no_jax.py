@@ -26,7 +26,7 @@ import chip_smoke
 assert len(names) >= 20, names
 parallel = {"nrslam_tpu_torch.parallel." + m for m in (
     "sharding", "ba_shard", "multihost", "tracking_shard", "dryrun",
-    "solve_shard", "ba_points")}
+    "solve_shard", "ba_points", "frame_graph_shard")}
 assert parallel <= set(names), sorted(parallel - set(names))
 assert "nrslam_tpu_torch.slam.frame_graph" in names
 tools = {"nrslam_tpu_torch.profile_" + m for m in (
