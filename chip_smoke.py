@@ -7,7 +7,8 @@ System three ways, the card with the kernels, the card with the plain
 drivers, the CPU, and prints each one's accuracy and how far their
 trajectories drift apart; ``python3 chip_smoke.py --wrappers TREE`` only
 times the pose-only, joint and BA wrappers of the package in TREE, e.g.
-another commit's ``git archive``: measurements, not checks.)
+another commit's ``git archive``, and its partitioned joint and BA routes
+by phase: measurements, not checks.)
 
 Phases (any failure raises and exits non-zero; nothing is caught; each
 prints its seconds):
@@ -47,8 +48,10 @@ prints its seconds):
      launches as pose_only_cuda / pose_deformation_cuda
      .shard_phase_launches count them. Timed at pinhole P=768 deformed:
      the wrapper (CUDA events), the sum of its phase launches' device time
-     (torch.profiler) and the whole-solver wrapper, with the bound of the
-     work the call reports;
+     (torch.profiler), by phase for the joint's and the BA's cluster
+     phase kernels (told apart by name, dryrun.SHARD_KERNELS), and the
+     whole-solver wrapper, with the bound of the work the call reports;
+     ptxas reports no spills in any of those phase kernels;
   3b. shared-memory overflow: the pose-only kernel with its points in
      shared memory too (P=768 with 64 threads), and at the sizes that take
      each plan by default (P=131 in registers only, 4096 in shared and
@@ -201,7 +204,8 @@ prints its seconds):
      graph launch in a profiled replay of each kind, and the final state
      bit for bit the 4 gloo ranks'; it prints replayed against eager
      ms/frame by kind, build and capture seconds, pools, peak allocated
-     and the partitioned routes' device ms inside a replayed frame.
+     and the partitioned routes' device ms inside a replayed frame, by
+     route and phase.
      Prints ms/frame of the sharded and the
      single-process frame (four processes share the card: a
      measurement), each rank's collective payload bytes per frame beside
@@ -617,11 +621,15 @@ def kernel_phase(dev):
     return rec
 
 
-def phase_kernel_ms(fn, names) -> tuple:
+def phase_kernel_ms(fn, route: str) -> tuple:
     """(device ms of the phase kernels of one call of ``fn``, their
-    launches), from torch.profiler after one warm-up call: the sum of the
-    CUDA kernels whose name holds ``nrslam`` and one of ``names``."""
+    launches, the same by phase {phase: (ms, launches)}), from
+    torch.profiler after one warm-up call: the CUDA kernels of the
+    partitioned route ``route``, told apart by name
+    (``dryrun.SHARD_KERNELS``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from nrslam_tpu_torch.parallel import dryrun
 
     fn()
     torch.cuda.synchronize()
@@ -629,13 +637,16 @@ def phase_kernel_ms(fn, names) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us, n = 0.0, 0
+    by = {}
     for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "nrslam" in e.key and any(k in e.key for k in names)):
-            us += getattr(e, "device_time_total", None) or e.cuda_time_total
-            n += e.count
-    return us / 1e3, n
+        hit = dryrun.shard_kernel_of(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and hit \
+                and hit[0] == route:
+            us = getattr(e, "device_time_total", None) or e.cuda_time_total
+            t, n = by.get(hit[1], (0.0, 0))
+            by[hit[1]] = (t + us / 1e3, n + e.count)
+    return (sum(t for t, _ in by.values()), sum(n for _, n in by.values()),
+            {p: (round(t, 4), n) for p, (t, n) in sorted(by.items())})
 
 
 def permuted(perm, X, obs, valid, pairs):
@@ -788,12 +799,9 @@ def shard_kernel_phase(dev, whole: dict):
             continue
         # Timed at the [kernel] records' problem (pinhole, P=768, deformed).
         ms_po, ms_pd = cuda_ms(pose_call), cuda_ms(joint_call, 2, 10)
-        k_po, n_po = phase_kernel_ms(pose_call, ("partials_kernel",
-                                                 "step_kernel",
-                                                 "relevel_kernel"))
-        k_pd, n_pd = phase_kernel_ms(joint_call, ("init_kernel", "lin_kernel",
-                                                  "step_kernel", "hv_kernel",
-                                                  "cg_kernel"))
+        k_po, n_po, by_po = phase_kernel_ms(pose_call, "pose_only_shard")
+        k_pd, n_pd, by_pd = phase_kernel_ms(joint_call,
+                                            "pose_deformation_shard")
         w_po = cuda_ms(lambda: poc.camera_pose_optimization_cuda(
             cam, T0, X, obs, valid))
         w_pd = cuda_ms(lambda: pdc.pose_deformation_cuda(
@@ -813,16 +821,18 @@ def shard_kernel_phase(dev, whole: dict):
               + 4 * P + 7 * 4)
         rec["pose_deformation_shard"] = kernel_record(k_pd, ms_pd, p_pd,
                                                       jflops, jb, work)
-        for name, ms, k_ms, n_k, whole, plain in (
-                ("pose_only_shard", ms_po, k_po, n_po, w_po, p_po),
-                ("pose_deformation_shard", ms_pd, k_pd, n_pd, w_pd, p_pd)):
+        for name, ms, k_ms, n_k, by, whole, plain in (
+                ("pose_only_shard", ms_po, k_po, n_po, by_po, w_po, p_po),
+                ("pose_deformation_shard", ms_pd, k_pd, n_pd, by_pd, w_pd,
+                 p_pd)):
             r = rec[name]
             print(f"[kernel] {name} {label}: wrapper {ms:.4f} ms, its "
                   f"{n_k} phase launches {k_ms:.4f} ms of device time "
-                  f"(torch.profiler), the whole-solver wrapper "
-                  f"{whole:.4f} ms, plain {plain:.4f} ms; bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}), phase "
-                  f"kernels / bound {k_ms / r['bound_ms']:.0f}")
+                  f"(torch.profiler; by phase, ms and launches: {by}), the "
+                  f"whole-solver wrapper {whole:.4f} ms, plain "
+                  f"{plain:.4f} ms; bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']}), phase kernels / bound "
+                  f"{k_ms / r['bound_ms']:.0f}")
     for name in rec:
         rec[name]["err"] = err[name]
     torch.cuda.synchronize()
@@ -906,9 +916,7 @@ def ba_shard_kernel_phase(dev, whole: dict):
         if (kind, n_valid, deform, P) != ("pinhole", 5, 0.02, 768):
             continue
         ms = cuda_ms(call, 2, 10)
-        k_ms, n_k = phase_kernel_ms(call, ("init_kernel", "lin_kernel",
-                                           "step_kernel", "hv_kernel",
-                                           "cg_kernel"))
+        k_ms, n_k, by = phase_kernel_ms(call, "bundle_adjustment_shard")
         w_ms = cuda_ms(lambda: bac.local_deformable_ba_cuda(
             cam, poses0, L0, prob, cg_iters=cg))
         E_live = int(torch.any(ba._masks(prob._replace(
@@ -924,7 +932,8 @@ def ba_shard_kernel_phase(dev, whole: dict):
                             flops, n_b, work)
         print(f"[kernel] bundle_adjustment_shard {label}: wrapper {ms:.4f} "
               f"ms, its {n_k} phase launches {k_ms:.4f} ms of device time "
-              f"(torch.profiler), the whole-solver wrapper {w_ms:.4f} ms, "
+              f"(torch.profiler; by phase, ms and launches: {by}), the "
+              f"whole-solver wrapper {w_ms:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms; {E_live} live edges; bound "
               f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}: "
               f"{flops / 1e6:.2f} MFLOP, {n_b / 1e6:.3f} MB), phase kernels "
@@ -1737,8 +1746,10 @@ def time_wrappers(dev, card: str):
     """The pose-only, joint and BA wrapper calls of the package imported
     (from this checkout, or from another commit's unpacked tree given on the
     command line) at the main-path shapes (pose-only also at the init
-    refine's P=1024): median of 20 after 3 warm-ups, CUDA events. Run it for
-    two trees in one call to compare them on one card."""
+    refine's P=1024): median of 20 after 3 warm-ups, CUDA events; then the
+    partitioned joint and BA routes (``route_phase_ms``: wrapper ms and
+    device ms by phase). Run it for two trees in one call to compare them
+    on one card."""
     from nrslam_tpu_torch.bench_problem import ba_problem, solver_problem
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation as pd
@@ -1763,8 +1774,59 @@ def time_wrappers(dev, card: str):
         out.append((f"BA {kind} {n_valid}/5", cuda_ms(
             lambda: bac.local_deformable_ba_cuda(cam, poses0, L0, prob,
                                                  cg_iters=16))))
-    print(f"[wrappers] {os.path.dirname(os.path.dirname(pdc.__file__))} on "
-          f"{card}: " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in out))
+    tree = os.path.dirname(os.path.dirname(pdc.__file__))
+    print(f"[wrappers] {tree} on {card}: "
+          + "; ".join(f"{n} {ms:.4f} ms" for n, ms in out))
+
+    # The partitioned routes at the [kernel] records' problems, in one
+    # process without a group: wrapper ms and device ms by phase.
+    from nrslam_tpu_torch.parallel import ba_points, sharding, solve_shard
+
+    mesh = sharding.make_mesh(dev)
+    cam, T0, X, obs, valid, pairs = solver_problem("pinhole", device=dev,
+                                                   deform_amp=0.05)
+    seed = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid)
+    cam_b, poses0, L0, prob = ba_problem("pinhole", 5, device=dev)
+    for name, fn in (
+            ("joint", lambda: solve_shard.pose_deformation_sharded(
+                mesh, cam, seed, X, obs, valid, pairs, 1.0)),
+            ("BA", lambda: ba_points.local_deformable_ba_sharded(
+                mesh, cam_b, poses0, L0, prob, 5, 16))):
+        ms = cuda_ms(fn, 2, 10)
+        by = route_phase_ms(fn)
+        total = sum(t for t, _ in by.values())
+        print(f"[wrappers] {tree} partitioned {name} pinhole P=768: wrapper "
+              f"{ms:.4f} ms, phase launches {total:.4f} ms of device time "
+              f"(torch.profiler), by phase (ms, launches) {by}")
+
+
+def route_phase_ms(fn) -> dict:
+    """Device ms and launches by phase of one call of a partitioned route
+    (after a warm-up call, torch.profiler): the port's kernels named by
+    phase, this tree's (``joint_hv``, ``ba_cg``) or an older tree's
+    (``hv_kernel``)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        hit = re.search(r"(?:joint_|ba_)(init|lin|step|hv|cg)\(|"
+                        r"\b(init|lin|step|hv|cg)_kernel\(", e.key)
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                "nrslam" not in e.key or not hit:
+            continue
+        phase = hit.group(1) or hit.group(2)
+        us = getattr(e, "device_time_total", None) or e.cuda_time_total
+        t, n = by.get(phase, (0.0, 0))
+        by[phase] = (round(t + us / 1e3, 4), n + e.count)
+    return dict(sorted(by.items()))
 
 
 def refine_kernel_check(inputs, rec):
@@ -2360,15 +2422,18 @@ def shard_graph_step(card: str, mesh, gloo_frames: dict):
         for kf, rd in sorted(rec.get("profile", {}).items()):
             label = "keyframe" if kf else "non-keyframe"
             graph_launches.append(rd["host"].get("cudaGraphLaunch", 0))
-            routes = {k: (round(v[0], 4), v[1]) if k != "complete" else v
-                      for k, v in rd["routes"].items()}
+            routes = {k: (round(v[0], 4), v[1]) if isinstance(v, tuple)
+                      else v for k, v in rd["routes"].items()
+                      if k != "phases"}
+            by_phase = {r: {p: (round(t, 4), n) for p, (t, n) in v.items()}
+                        for r, v in rd["routes"]["phases"].items()}
             print(f"[shard-graph] P={P} one profiled replay, {label}: "
                   f"{rd['kernels']} kernels + {rd['copies']} copies, "
                   f"{rd['busy_ms']:.2f} ms of device time, wall "
                   f"{rd['wall_ms']:.2f} ms, host launch calls {rd['host']}, "
                   f"NCCL kernels (device ms, count) {rd['nccl']}; "
                   f"the partitioned routes' phase kernels (device ms, "
-                  f"launches): {routes}")
+                  f"launches): {routes}; by phase {by_phase}")
         ok = (all(rec["same_as_eager"]) and same_counts and like_ref
               and launches_ok and rec["replays"] == len(kfs)
               and all(g == 1 for g in graph_launches))
@@ -2444,6 +2509,12 @@ def main():
     if not wrappers:
         check_no_spills(kernels.build_log.get("pose_only.cu", ""),
                         "pose_only_kernel", 2)
+        # The partitioned routes' phase kernels, one instantiation each.
+        for src, prefix in (("pose_deformation_shard.cu", "joint"),
+                            ("bundle_adjustment_shard.cu", "ba")):
+            for p in ("init", "lin", "step", "hv", "cg"):
+                check_no_spills(kernels.build_log.get(src, ""),
+                                f"{prefix}_{p}", 1)
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()

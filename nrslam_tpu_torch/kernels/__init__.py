@@ -56,10 +56,10 @@ _SIGNATURES = {
     "nrslam_pose_shard_step": (_I, [_P, _P, _I, _I, _P]),
     "nrslam_pose_shard_relevel": (_I, [_P] * 6 + [_I, _I, _P]),
     "nrslam_joint_shard_layout": (_I, [_I] * 4 + [_P]),
-    "nrslam_joint_shard": (_I, [_I, _I, _P, _I] + [_P] * 14 + [_I] * 6
+    "nrslam_joint_shard": (_I, [_I] * 4 + [_P, _I] + [_P] * 10 + [_I] * 6
                            + [_P]),
     "nrslam_ba_shard_layout": (_I, [_I] * 5 + [_P]),
-    "nrslam_ba_shard": (_I, [_I, _I, _P, _I] + [_P] * 14 + [_I] * 7
+    "nrslam_ba_shard": (_I, [_I] * 4 + [_P, _I] + [_P] * 10 + [_I] * 7
                         + [_P]),
 }
 

@@ -221,33 +221,60 @@ def _frame_reading(step, mesh):
                               for k, v in _launch_counts().items()}}
 
 
+# The partitioned routes' phase kernels by their names (csrc/*_shard.cu):
+# route -> phase -> the part of a device kernel's name that marks it.
+SHARD_KERNELS = {
+    "pose_only_shard": {"partials": "partials_kernel",
+                        "step": "step_kernel", "relevel": "relevel_kernel"},
+    "pose_deformation_shard": {p: f"joint_{p}("
+                               for p in ("init", "lin", "step", "hv", "cg")},
+    "bundle_adjustment_shard": {p: f"ba_{p}("
+                                for p in ("init", "lin", "step", "hv", "cg")},
+}
+
+
+def shard_kernel_of(name: str):
+    """(route, phase) of a device kernel's name, or None for a kernel of
+    no partitioned route."""
+    if "nrslam" not in name:
+        return None
+    for route, phases in SHARD_KERNELS.items():
+        for phase, mark in phases.items():
+            if mark in name:
+                return route, phase
+    return None
+
+
 def shard_routes_in_replay(ours, make_keyframe: bool) -> dict:
     """Each partitioned route's phase kernels in one profiled replay of the
-    sharded frame (``frame_graph.profile_step``'s ``ours``, in the order
-    they ran): route -> (device ms, launches). A frame runs the pose-only
-    solve, then the joint, then (a keyframe) the window BA, and the joint's
-    and the BA's kernels share their names, so the launches are taken in
-    order, ``shard_phase_launches`` of each. ``complete`` says whether the
-    profiler saw every launch (it can lose a few events in an old
-    process)."""
+    sharded frame (``frame_graph.profile_step``'s ``ours``), told apart by
+    name (``SHARD_KERNELS``): route -> (device ms, launches); ``phases``:
+    route -> phase -> (device ms, launches). ``complete`` says whether the
+    profiler saw every launch of the frame's schedule (it can lose a few
+    events in an old process)."""
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
-    routes = [("pose_only_shard", pose_only_cuda.shard_phase_launches()),
-              ("pose_deformation_shard", pdc.shard_phase_launches())]
-    if make_keyframe:
-        routes.append(("bundle_adjustment_shard", bac.shard_phase_launches()))
-    phases = ("partials_kernel", "relevel_kernel", "init_kernel",
-              "lin_kernel", "step_kernel", "hv_kernel", "cg_kernel")
-    kernels = [ms for name, ms in ours if any(p in name for p in phases)]
-    out, at = {}, 0
-    for route, launches in routes:
-        n = sum(launches.values())
-        mine = kernels[at:at + n]
-        out[route] = (sum(mine), len(mine))
-        at += n
-    out["complete"] = at == len(kernels)
+    want = {"pose_only_shard": pose_only_cuda.shard_phase_launches(),
+            "pose_deformation_shard": pdc.shard_phase_launches(),
+            "bundle_adjustment_shard": (bac.shard_phase_launches()
+                                        if make_keyframe else {})}
+    phases = {route: {p: (0.0, 0) for p in SHARD_KERNELS[route]}
+              for route in want}
+    for name, ms in ours:
+        hit = shard_kernel_of(name)
+        if hit is not None:
+            route, phase = hit
+            t, n = phases[route][phase]
+            phases[route][phase] = (t + ms, n + 1)
+    out = {route: (sum(t for t, _ in by.values()),
+                   sum(n for _, n in by.values()))
+           for route, by in phases.items() if want[route]}
+    out["complete"] = all(phases[route][p][1] == want[route].get(p, 0)
+                          for route in want for p in phases[route])
+    out["phases"] = {route: by for route, by in phases.items()
+                     if want[route]}
     return out
 
 

@@ -268,6 +268,22 @@ def _linearize(cam, T, rest_blk, obs_blk, flows, blk, ends, masks, infos):
                 a=a, chi2_r=chi2_r, chi2_s=chi2_s)
 
 
+def _hv(lin, ends, p_full, p_p, lam, blk, m):
+    """H p of the rank's flows (+ lambda p) [m, 3] and the pose part's terms
+    per point [m, 7] (J_pose^T w_r r, then p.Hp)."""
+    p_f = p_full[blk]
+    r_lin = (torch.einsum("pri,i->pr", lin.J_pose, p_p)
+             + torch.einsum("prk,pk->pr", lin.J_flow, p_f))
+    dv = p_full[ends.i] - p_full[ends.j]
+    ev = (lin.ws[:, None] * dv
+          + (lin.w_p * torch.sum(lin.a * dv, dim=-1))[:, None] * lin.a)
+    hp_f = (torch.einsum("prk,p,pr->pk", lin.J_flow, lin.w_r, r_lin)
+            + _scatter(ends.s[:, None] * ev, ends.lp, m) + lam * p_f)
+    return hp_f, torch.cat([
+        torch.einsum("pri,p,pr->pi", lin.J_pose, lin.w_r, r_lin),
+        torch.sum(p_f * hp_f, -1, keepdim=True)], 1)
+
+
 def _pcg(mesh, lin, lam, ends, blk, P, iters: int, tol: float = 1e-8):
     """``core.pcg`` with ``pose_deformation._make_hvp`` and the block-Jacobi
     preconditioner over the ranks' blocks; returns (x pose [6], x of the
@@ -291,16 +307,8 @@ def _pcg(mesh, lin, lam, ends, blk, P, iters: int, tol: float = 1e-8):
     zero = torch.zeros((), dtype=lam.dtype, device=lam.device)
     for t in range(iters):
         p_f = p_full[blk]
-        r_lin = (torch.einsum("pri,i->pr", lin.J_pose, p_p)
-                 + torch.einsum("prk,pk->pr", lin.J_flow, p_f))
-        dv = p_full[ends.i] - p_full[ends.j]
-        ev = (lin.ws[:, None] * dv
-              + (lin.w_p * torch.sum(lin.a * dv, dim=-1))[:, None] * lin.a)
-        hp_f = (torch.einsum("prk,p,pr->pk", lin.J_flow, lin.w_r, r_lin)
-                + _scatter(ends.s[:, None] * ev, ends.lp, m) + lam * p_f)
-        red = _reduce_rows(mesh, torch.cat([
-            torch.einsum("pri,p,pr->pi", lin.J_pose, lin.w_r, r_lin),
-            torch.sum(p_f * hp_f, -1, keepdim=True)], 1), blk, P)[0]
+        hp_f, terms = _hv(lin, ends, p_full, p_p, lam, blk, m)
+        red = _reduce_rows(mesh, terms, blk, P)[0]
         hp_p = red[:6] + lam * p_p
         denom = torch.dot(p_p, hp_p) + red[6]
         alpha = torch.where(torch.abs(denom) > 0, rz / denom, zero)

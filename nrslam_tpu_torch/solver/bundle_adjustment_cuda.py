@@ -20,8 +20,9 @@ counts launches; ``last_work`` is the device header of the last launch
 ``shard`` is the partitioned route of the sharded frame
 (``parallel.ba_points``): the phase kernels of
 csrc/bundle_adjustment_shard.cu over a rank's points, all their copies and
-their edge-ends (the CSR of ``incidence_csr`` over the edges some spring
-uses), with the caller's all-reduce between launches.
+their edge-ends (over the edges some spring uses), each phase one thread
+block cluster whose blocks own whole chunks of the rank's points
+(``shard_tables``), with the caller's all-reduce between launches.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.solver.pose_deformation_cuda import (
-    SHARD_WORK_FIELDS, WORK_FIELDS, Prepared, cluster_layout, incidence_csr)
+    SHARD_WORK_FIELDS, WORK_FIELDS, Prepared, cluster_layout, shard_plan)
 
 launches = 0
 last_work = None
@@ -138,6 +139,27 @@ def shard_phase_launches(n_iters: int = 5, cg_iters: int = 16) -> dict:
             "hv": n_iters * cg_iters, "cg": n_iters * cg_iters}
 
 
+def shard_tables(pairs, spring, damper, P: int, block: slice,
+                 max_blocks: int, chunk: int = 64):
+    """The route's ``ShardPlan`` over the edges some keyframe's spring uses
+    and its per-end constants [2E, 4] float32: w, d0 (clamped >= 1e-12),
+    the int32 bits of the masks (spring bit k, damper (k, k + 1) bit 8 + k)
+    and 0 (device ops)."""
+    W = spring.shape[0]
+    plan = shard_plan(pairs.i, pairs.j, torch.any(spring, 0), P, block,
+                      max_blocks, chunk)
+    k = torch.arange(W, dtype=torch.int32, device=spring.device)[:, None]
+    bits = torch.sum(spring.to(torch.int32) << k, 0) + torch.sum(
+        damper.to(torch.int32) << (8 + k[:-1]), 0)
+    e = plan.edge
+    econ = torch.stack([
+        pairs.w.to(torch.float32)[e],
+        torch.clamp(pairs.d0.to(torch.float32), min=1e-12)[e],
+        bits.to(torch.int32)[e].view(torch.float32),
+        torch.zeros_like(e, dtype=torch.float32)], dim=1).contiguous()
+    return plan, econ
+
+
 def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
           spring, damper, info_s, n_iters: int, cg_iters: int, block: slice,
           rank: int, n: int, reduce):
@@ -167,29 +189,22 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
                    torch.zeros((W, 1), dtype=torch.float32, device=dev)],
                   dim=-1).reshape(-1),
         torch.as_tensor(info_s, dtype=torch.float32, device=dev).reshape(1)])
-    k = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
-    bits = torch.sum(spring.to(torch.int32) << k, 0) + torch.sum(
-        damper.to(torch.int32) << (8 + k[:-1]), 0)
-    inc_ptr, inc_edge, inc_sign = incidence_csr(pairs.i, pairs.j,
-                                                torch.any(spring, 0), P)
-    tensors = (params.contiguous(),
-               L0.to(torch.float32).transpose(0, 1).contiguous(),
-               obs_ok.to(torch.float32).transpose(0, 1).contiguous(),
-               obs.to(torch.float32).transpose(0, 1).contiguous(),
-               pairs.i.to(torch.int32).contiguous(),
-               pairs.j.to(torch.int32).contiguous(),
-               pairs.w.to(torch.float32).contiguous(),
-               torch.clamp(pairs.d0.to(torch.float32), min=1e-12),
-               bits.to(torch.int32).contiguous(), inc_ptr, inc_edge,
-               inc_sign)
-    dev = kernels.require_cuda("bundle_adjustment shard", *tensors)
+    inputs = (params.contiguous(),
+              L0.to(torch.float32).transpose(0, 1).contiguous(),
+              obs_ok.to(torch.float32).transpose(0, 1).contiguous(),
+              obs.to(torch.float32).transpose(0, 1).contiguous())
+    dev = kernels.require_cuda("bundle_adjustment shard", *inputs)
     lib = kernels.library()
-    n_ends = inc_edge.shape[0]
-    lay = (ctypes.c_long * 6)()
+    n_ends = 2 * pairs.i.shape[0]
+    lay = (ctypes.c_long * 9)()
     kernels.check_launch("bundle_adjustment shard layout",
                          lib.nrslam_ba_shard_layout(
                              W, m, P, n_ends, n, ctypes.addressof(lay)))
-    total, red_at, reds_at, work_at, chunk, S = lay
+    total, red_at, reds_at, st_at, st_n, work_at, chunk, S, max_blocks = lay
+    plan, econ = shard_tables(pairs, spring, damper, P, block, max_blocks,
+                              chunk)
+    tensors = (*inputs, plan.ends, econ, plan.inc_ptr, plan.chunk_off)
+    C = plan.chunk_off.shape[0] - 1
     nc = -(-P // chunk)
     scratch = torch.zeros(total, dtype=torch.float32, device=dev)
     n3 = 3 * W * P
@@ -198,14 +213,17 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
     out_pose = torch.empty((W, 8), dtype=torch.float32, device=dev)
     out_L = torch.empty((P, W, 3), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
-    args = (_KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
+    args = (ptrs[0], _KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
             out_pose.data_ptr(), out_L.data_ptr(), W, P, m, p0, n_ends, rank,
             n, kernels.stream_of(dev))
+    q = 0  # launches so far: launch q reads st's slot q % 2
 
     def run(phase, arg=0):
-        rc = lib.nrslam_ba_shard(_PHASES.index(phase), arg, ptrs[0], *args)
+        nonlocal q
+        rc = lib.nrslam_ba_shard(_PHASES.index(phase), arg, q & 1, C, *args)
         kernels.check_launch(f"bundle_adjustment shard {phase}", rc)
         shard_launches[phase] += 1
+        q += 1
 
     run("init")
     run("lin", _START)
@@ -215,13 +233,15 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
         reduce(red)
         for t in range(cg_iters):
             last = t == cg_iters - 1
-            run("hv", int(t == 0))
+            # arg: first / last trip, then the trip's p slot.
+            run("hv", int(t == 0) | (t & 1) << 1)
             reduce(reds[:(6 * W + 1) * nc])
-            run("cg", int(last))
+            run("cg", int(last) | (t & 1) << 1)
             reduce(red[:n3 + (nc if last else 2 * nc)])
         run("lin", _TRIAL)
         reduce(reds[:S * nc])
         run("step", 4 | (_NEXT_CG if it + 1 < n_iters else _NEXT_FINAL))
     shard_calls += 1
-    shard_last_work = scratch[work_at:work_at + len(SHARD_WORK_FIELDS)]
+    at = st_at + (q & 1) * st_n + work_at
+    shard_last_work = scratch[at:at + len(SHARD_WORK_FIELDS)]
     return se3.SE3(out_pose[:, :4], out_pose[:, 4:7]), out_L.transpose(0, 1)

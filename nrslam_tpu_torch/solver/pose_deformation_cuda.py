@@ -19,9 +19,10 @@ raises otherwise, or when the card refuses the cluster; the plain version is
 
 ``shard`` is the partitioned route of the sharded frame
 (``parallel.solve_shard``): the phase kernels of
-csrc/pose_deformation_shard.cu over a rank's points and their edge-ends
-(the CSR of ``incidence_csr``), with the caller's all-reduce between
-launches.
+csrc/pose_deformation_shard.cu over a rank's points and their edge-ends,
+each phase one thread block cluster whose blocks own whole chunks of the
+rank's points (``shard_plan``: the blocks and the per-end table, device
+ops), with the caller's all-reduce between launches.
 """
 
 from __future__ import annotations
@@ -191,6 +192,42 @@ _START, _TRIAL = 0, 1
 _NEXT_CG, _NEXT_RELEVEL, _NEXT_FINAL = 0, 1, 2
 
 
+class ShardPlan(NamedTuple):
+    """A rank's plan for the partitioned routes' phase kernels: the blocks
+    of each phase's cluster on whole chunks of the rank's points, and the
+    per-end table in the owners' CSR order (``incidence_csr``: each point's
+    live incident edges in edge order, dead edges past ``inc_ptr[P]``)."""
+
+    chunk_off: torch.Tensor  # [C + 1] int32: block b owns the chunks
+    #                          [chunk_off[b], chunk_off[b + 1])
+    inc_ptr: torch.Tensor    # [P + 1] int32
+    ends: torch.Tensor       # [2E, 4] int32: i, j, far end, sign (+1 at i)
+    edge: torch.Tensor       # [2E] int64: the edge at each position
+
+
+def shard_plan(i, j, live, P: int, block: slice, max_blocks: int,
+               chunk: int = 64) -> ShardPlan:
+    """The plan of the rank that owns ``block`` of the P points, over the
+    edges (i, j) whose ``live`` is set (device ops, no host sync): its
+    chunks (``block``'s points // ``chunk``, n of them) shared out over C =
+    min(max_blocks, n) blocks, block b taking chunks [g0 + b n // C, g0 +
+    (b + 1) n // C); the table covers every CSR position, so every rank
+    holds the same one."""
+    g0, g1 = block.start // chunk, (block.stop - 1) // chunk
+    n = g1 - g0 + 1
+    b = torch.arange(min(max_blocks, n) + 1, dtype=torch.int64,
+                     device=i.device)
+    chunk_off = (g0 + torch.div(b * n, b.shape[0] - 1,
+                                rounding_mode="floor")).to(torch.int32)
+    ptr, edge, sign = incidence_csr(i, j, live, P)
+    e = edge.to(torch.int64)
+    ie, je = i.to(torch.int64)[e], j.to(torch.int64)[e]
+    far = torch.where(sign > 0, je, ie)
+    ends = torch.stack([ie, je, far, sign.to(torch.int64)], dim=1).to(
+        torch.int32).contiguous()
+    return ShardPlan(chunk_off.contiguous(), ptr, ends, e)
+
+
 def shard_phase_launches(rounds=(10, 10), cg_iters: int = 10) -> dict:
     """The phase launches one ``shard`` call makes with this schedule."""
     steps = sum(rounds)
@@ -229,24 +266,26 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
         Tcw0.q.to(torch.float32), Tcw0.t.to(torch.float32),
         torch.stack([torch.full_like(info_s, info_r), info_s,
                      torch.full_like(info_s, info_p)])]).contiguous()
-    inc_ptr, inc_edge, inc_sign = incidence_csr(pairs.i, pairs.j, base, P)
-    tensors = (params, rest.to(torch.float32).contiguous(),
-               point_valid.to(torch.float32).contiguous(),
-               obs.to(torch.float32).contiguous(),
-               pairs.i.to(torch.int32).contiguous(),
-               pairs.j.to(torch.int32).contiguous(),
-               pairs.w.to(torch.float32).contiguous(),
-               torch.clamp(pairs.d0.to(torch.float32), min=1e-12),
-               base.to(torch.float32).contiguous(), inc_ptr, inc_edge,
-               inc_sign)
-    dev = kernels.require_cuda("pose_deformation shard", *tensors)
+    inputs = (params, F.pad(rest.to(torch.float32), (0, 1)).contiguous(),
+              point_valid.to(torch.float32).contiguous(),
+              obs.to(torch.float32).contiguous())
+    dev = kernels.require_cuda("pose_deformation shard", *inputs)
     lib = kernels.library()
-    n_ends = inc_edge.shape[0]
-    lay = (ctypes.c_long * 5)()
+    n_ends = 2 * pairs.i.shape[0]
+    lay = (ctypes.c_long * 8)()
     kernels.check_launch("pose_deformation shard layout",
                          lib.nrslam_joint_shard_layout(
                              m, P, n_ends, n, ctypes.addressof(lay)))
-    total, red_at, reds_at, work_at, chunk = lay
+    total, red_at, reds_at, st_at, st_n, work_at, chunk, max_blocks = lay
+    plan = shard_plan(pairs.i, pairs.j, base, P, block, max_blocks, chunk)
+    e = plan.edge
+    econ = torch.stack([
+        pairs.w.to(torch.float32)[e],
+        torch.clamp(pairs.d0.to(torch.float32), min=1e-12)[e],
+        base.to(torch.float32)[e], torch.zeros_like(e, dtype=torch.float32)],
+        dim=1).contiguous()
+    tensors = (*inputs, plan.ends, econ, plan.inc_ptr, plan.chunk_off)
+    C = plan.chunk_off.shape[0] - 1
     nc = -(-P // chunk)
     scratch = torch.zeros(total, dtype=torch.float32, device=dev)
     red = scratch[red_at:red_at + 3 * P + 2 * nc]
@@ -254,15 +293,18 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
     out_pose = torch.empty(8, dtype=torch.float32, device=dev)
     out_flows = torch.empty((P, 3), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
-    args = (_KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
+    args = (ptrs[0], _KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
             out_pose.data_ptr(), out_flows.data_ptr(), P, m, p0, n_ends,
             rank, n, kernels.stream_of(dev))
+    q = 0  # launches so far: launch q reads st's slot q % 2
 
     def run(phase, arg=0):
-        rc = lib.nrslam_joint_shard(_PHASES.index(phase), arg, ptrs[0],
+        nonlocal q
+        rc = lib.nrslam_joint_shard(_PHASES.index(phase), arg, q & 1, C,
                                     *args)
         kernels.check_launch(f"pose_deformation shard {phase}", rc)
         shard_launches[phase] += 1
+        q += 1
 
     run("init")
     for r, n_lm in enumerate(rounds):
@@ -273,14 +315,16 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
         for it in range(n_lm):
             reduce(red)
             for t in range(cg_iters):
-                run("hv", int(t == 0))
+                # arg: first / last trip, then the trip's p slot.
+                run("hv", int(t == 0) | (t & 1) << 1)
                 reduce(reds[:7 * nc])
-                run("cg", int(t == cg_iters - 1))
+                run("cg", int(t == cg_iters - 1) | (t & 1) << 1)
                 reduce(red)
             run("lin", _TRIAL)
             reduce(reds[:28 * nc])
             run("step", 4 | (_NEXT_CG if it + 1 < n_lm else after))
     reduce(red[:P])
     shard_calls += 1
-    shard_last_work = scratch[work_at:work_at + len(SHARD_WORK_FIELDS)]
+    at = st_at + (q & 1) * st_n + work_at
+    shard_last_work = scratch[at:at + len(SHARD_WORK_FIELDS)]
     return se3.SE3(out_pose[:4], out_pose[4:7]), out_flows, red[:P]
