@@ -1,0 +1,333 @@
+"""Monocular map initialisation: KLT track accumulation + batched
+essential-matrix RANSAC on bearing rays + midpoint triangulation gates
+(counterpart of nrslam_tpu/slam/initializer.py; reference
+MonocularMapInitializer + EssentialMatrixInitialization).
+
+Same math, constants and deviations as the JAX package: stratified sampling
+(one member of each of 8 Lloyd's-kmeans clusters per hypothesis), a static
+batch of hypotheses scored at once, a least-squares refit of E on the best
+inlier set, and a three-step two-view refinement on the success frame only.
+
+Random draws are explicit inputs: ``_kmeans`` takes its permutation
+``perm [N]`` and ``find_essential_ransac`` its Gumbel noise
+``gumbel [H, N]``, so any device (and the JAX package's own draws) can feed
+the same samples. The JAX package's ``lax.cond`` branches (reset on too few
+matches, refinement on success) are host branches here, read once per init
+frame; init frames may synchronise, steady frames never run this module.
+
+The small decompositions (the 8x9 and 3x3 SVDs, the refit's 9x9 ``eigh``)
+run on the host's LAPACK whatever the device: the refit's normal matrix
+spans ~1e7 in eigenvalue, and cuSOLVER's float32 ``eigh`` on an H100
+returned a smallest eigenvalue of -2.8e-7 where LAPACK gives 1.28e-5 for
+the same matrix, enough to turn the refit E into one that loses inliers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from slambench.reference.geometry import cameras, se3, triangulation
+from slambench.reference.ops import klt, shi_tomasi
+
+# Two-view refinements run (each is three pose-only solves; on the card
+# three launches of the pose-only kernel).
+refines = 0
+
+
+class InitializerConfig(NamedTuple):
+    max_features: int = 1024
+    min_matches: int = 100
+    max_frames_from_ref: int = 30
+    min_triangulated: int = 100
+    max_low_parallax_frac: float = 0.25
+    n_hypotheses: int = 64
+    epipolar_threshold: float = 0.005
+    rad_per_pixel: float = 0.002
+    nms_radius: int = 7
+    klt_min_ssim: float = 0.5
+    kmeans_clusters: int = 8
+    kmeans_iters: int = 10
+
+
+class InitializerState(NamedTuple):
+    ref_keypoints: torch.Tensor   # [F, 2]
+    cur_keypoints: torch.Tensor   # [F, 2]
+    track_id: torch.Tensor        # [F] int32
+    status: torch.Tensor          # [F] int32 (TRACKED while alive)
+    valid: torch.Tensor           # [F] slot holds a feature
+    refs: klt.KLTRefs
+    frames_from_ref: torch.Tensor  # int32
+    next_track_id: torch.Tensor    # int32
+
+
+class InitializationResult(NamedTuple):
+    success: torch.Tensor          # bool
+    Tcw: se3.SE3                   # current camera from world (ref camera)
+    ref_keypoints: torch.Tensor    # [F, 2]
+    cur_keypoints: torch.Tensor    # [F, 2]
+    landmarks: torch.Tensor        # [F, 3] world (= reference-camera) frame
+    point_ok: torch.Tensor         # [F]
+    track_id: torch.Tensor         # [F]
+
+
+def reset(pyramid, mask, next_track_id, klt_config: klt.KLTConfig,
+          config: InitializerConfig) -> InitializerState:
+    """Fresh features + KLT reference (ResetInitialization,
+    monocular_map_initializer.cc:81-98)."""
+    img = pyramid[0][0]
+    xy, valid, _ = shi_tomasi.detect(img, config.max_features,
+                                     nms_radius=config.nms_radius, mask=mask)
+    refs = klt.set_reference(pyramid, xy, valid, klt_config)
+    F_ = config.max_features
+    next_track_id = torch.as_tensor(next_track_id, dtype=torch.int32,
+                                    device=img.device)
+    ids = next_track_id + torch.arange(F_, dtype=torch.int32,
+                                       device=img.device)
+    track_id = torch.where(valid, ids, torch.full_like(ids, -1))
+    n_new = torch.sum(valid.to(torch.int32), dtype=torch.int32)
+    status = torch.where(valid, klt.TRACKED, klt.BAD).to(torch.int32)
+    return InitializerState(
+        ref_keypoints=xy, cur_keypoints=xy, track_id=track_id, status=status,
+        valid=valid, refs=refs,
+        frames_from_ref=torch.zeros((), dtype=torch.int32, device=img.device),
+        next_track_id=next_track_id + n_new)
+
+
+def track_frame(state: InitializerState, pyramid, klt_config: klt.KLTConfig,
+                config: InitializerConfig):
+    """KLT data association against the reference image. Returns
+    (state, n_matches)."""
+    pts, status = klt.track(pyramid, state.refs, state.cur_keypoints,
+                            state.status, klt_config,
+                            min_ssim=config.klt_min_ssim)
+    tracked = state.valid & (status == klt.TRACKED)
+    n = torch.sum(tracked.to(torch.int32), dtype=torch.int32)
+    return state._replace(cur_keypoints=pts, status=status,
+                          frames_from_ref=state.frames_from_ref + 1), n
+
+
+# ---------------------------------------------------------------------------
+# Essential matrix machinery
+# ---------------------------------------------------------------------------
+
+def _kmeans(points, valid, k: int, iters: int, perm):
+    """Fixed-iteration Lloyd's kmeans over valid 2D points -> labels [N];
+    initial centres are the first k valid points in ``perm`` order."""
+    order = torch.sort((~valid[perm]).to(torch.int8), stable=True).indices
+    centers = points[perm[order][:k]]
+    vmask = valid[:, None].to(points.dtype)
+
+    def nearest(c):
+        return torch.argmin(torch.sum((points[:, None] - c[None]) ** 2,
+                                      dim=-1), dim=-1)
+
+    for _ in range(iters):
+        one_hot = F.one_hot(nearest(centers), k).to(points.dtype) * vmask
+        counts = torch.sum(one_hot, dim=0)
+        sums = one_hot.T @ points
+        centers = torch.where(counts[:, None] > 0,
+                              sums / torch.clamp(counts[:, None], min=1.0),
+                              centers)
+    return nearest(centers)
+
+
+def _on_host(fn, *args):
+    """``fn`` on host copies of ``args``; results back on their device."""
+    out = fn(*(a.cpu() for a in args))
+    return tuple(o.to(args[0].device) for o in out)
+
+
+def _essential_projection(E):
+    """Closest essential matrix (singular values 1, 1, 0), negated as in the
+    reference's sign convention."""
+    u, _, vt = _on_host(torch.linalg.svd, E)
+    s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    return -(u @ (s[:, None] * vt))
+
+
+def _eight_point(ref_rays, cur_rays):
+    """E from 8 correspondences, batched over hypotheses
+    (essential_matrix_initialization.cc:180-212)."""
+    A = torch.cat([ref_rays * cur_rays[..., 0:1],
+                   ref_rays * cur_rays[..., 1:2],
+                   ref_rays * cur_rays[..., 2:3]], dim=-1)   # [..., 8, 9]
+    _, _, vt = _on_host(torch.linalg.svd, A)
+    E = vt[..., 8, :].reshape(vt.shape[:-2] + (3, 3))
+    return _essential_projection(E)
+
+
+def _epipolar_inliers(E, ref_rays, cur_rays, threshold: float):
+    """Angular epipolar test (essential_matrix_initialization.cc:236-256)."""
+    Er = torch.einsum("...ij,nj->...ni", E, ref_rays)
+    Er = Er / torch.clamp(torch.linalg.norm(Er, dim=-1, keepdim=True),
+                          min=1e-12)
+    cosang = torch.sum(Er * cur_rays[None], dim=-1)
+    err = torch.abs(math.pi / 2 - torch.arccos(torch.clamp(cosang, -1.0,
+                                                           1.0)))
+    return err < threshold
+
+
+def find_essential_ransac(ref_rays, cur_rays, tracked,
+                          config: InitializerConfig, perm, gumbel):
+    """Batched stratified RANSAC + least-squares refit. ``perm [N]`` seeds
+    the kmeans, ``gumbel [H, N]`` picks one tracked member of every cluster
+    per hypothesis (argmax of the noise). Returns (E, inliers [N])."""
+    labels = _kmeans(ref_rays[:, :2] / torch.clamp(ref_rays[:, 2:3],
+                                                   min=1e-6),
+                     tracked, config.kmeans_clusters, config.kmeans_iters,
+                     perm)
+    clusters = torch.arange(config.kmeans_clusters, device=labels.device)
+    member = tracked[None] & (labels[None] == clusters[:, None])   # [C, N]
+    w = torch.where(member[None], gumbel[:, None, :],
+                    torch.full_like(gumbel[:, None, :], -math.inf))
+    sample_idx = torch.argmax(w, dim=-1)                           # [H, C]
+    E = _eight_point(ref_rays[sample_idx], cur_rays[sample_idx])  # [H, 3, 3]
+
+    inl = _epipolar_inliers(E, ref_rays, cur_rays,
+                            config.epipolar_threshold) & tracked[None]
+    scores = torch.sum(inl.to(torch.int32), dim=-1)
+    best = torch.argmax(scores).reshape(1)
+    E_best, inl_best = E[best][0], inl[best][0]
+
+    # Refit on the full inlier set: smallest eigenvector of the
+    # inlier-weighted normal matrix, kept only if it loses no inliers.
+    A = torch.cat([ref_rays * cur_rays[:, 0:1], ref_rays * cur_rays[:, 1:2],
+                   ref_rays * cur_rays[:, 2:3]], dim=-1)          # [N, 9]
+    M = torch.einsum("ni,nj,n->ij", A, A, inl_best.to(A.dtype))
+    _, vecs = _on_host(torch.linalg.eigh, M)
+    Er = _essential_projection(vecs[:, 0].reshape(3, 3))
+    inl_r = _epipolar_inliers(Er[None], ref_rays, cur_rays,
+                              config.epipolar_threshold)[0] & tracked
+    keep = torch.sum(inl_r.to(torch.int32)) >= torch.sum(
+        inl_best.to(torch.int32))
+    return torch.where(keep, Er, E_best), torch.where(keep, inl_r, inl_best)
+
+
+def reconstruct_cameras(E, ref_rays, cur_rays, inliers) -> se3.SE3:
+    """Decompose E, pick the smaller rotation, orient t by ray consensus
+    (essential_matrix_initialization.cc:284-318)."""
+    u, _, vt = _on_host(torch.linalg.svd, E)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    R1 = u @ W.T @ vt
+    R1 = torch.where(torch.linalg.det(R1) < 0, -R1, R1)
+    R2 = u @ W @ vt
+    R2 = torch.where(torch.linalg.det(R2) < 0, -R2, R2)
+    R = torch.where(torch.trace(R2) > torch.trace(R1), R2, R1)
+    t = u[:, 2] / torch.linalg.norm(u[:, 2])
+
+    w = inliers.to(E.dtype)
+    away = torch.sum(w * torch.sign(torch.sum(
+        (ref_rays @ R.T - cur_rays) * (cur_rays - t[None]), dim=-1)))
+    t = torch.where(away < 0, -t, t)
+    return se3.SE3(se3.matrix_to_quat(R), t)
+
+
+def reconstruct_points(cam, Tcw: se3.SE3, ref_uv, cur_uv, inliers,
+                       config: InitializerConfig):
+    """Midpoint triangulation + parallax/depth/reprojection gates
+    (essential_matrix_initialization.cc:320-410). Returns
+    (landmarks [N, 3], ok [N], low_parallax [N])."""
+    ref_rays = cameras.unit_rays(cam, ref_uv)
+    cur_rays = cameras.unit_rays(cam, cur_uv)
+    T_ref = se3.identity(device=ref_uv.device)
+    X = triangulation.triangulate_midpoint(ref_rays, cur_rays, T_ref, Tcw)
+
+    t_wc = se3.inverse(Tcw).t
+    parallax = triangulation.rays_parallax(X, X - t_wc)
+    low_parallax = inliers & (parallax < config.rad_per_pixel * 5.0)
+
+    Xc = se3.apply(Tcw, X)
+    proj_ref = cameras.project(cam, X)
+    proj_cur = cameras.project(cam, Xc)
+    ok = (inliers
+          & torch.isfinite(X).all(dim=-1)
+          & ~low_parallax
+          & (X[:, 2] > 0) & (Xc[:, 2] > 0)
+          & (triangulation.squared_reprojection_error(ref_uv, proj_ref)
+             <= 5.991)
+          & (triangulation.squared_reprojection_error(cur_uv, proj_cur)
+             <= 5.991))
+    return X, ok, low_parallax
+
+
+def _attempt(cam, state: InitializerState, config: InitializerConfig, perm,
+             gumbel):
+    """Rigid initialisation attempt without the refinement. Returns
+    (InitializationResult, RANSAC inliers [F])."""
+    tracked = state.valid & (state.status == klt.TRACKED)
+    ref_rays = cameras.unit_rays(cam, state.ref_keypoints)
+    cur_rays = cameras.unit_rays(cam, state.cur_keypoints)
+    E, inliers = find_essential_ransac(ref_rays, cur_rays, tracked, config,
+                                       perm, gumbel)
+    Tcw = reconstruct_cameras(E, ref_rays, cur_rays, inliers)
+    X, ok, low_par = reconstruct_points(cam, Tcw, state.ref_keypoints,
+                                        state.cur_keypoints, inliers, config)
+    n_ok = torch.sum(ok.to(torch.int32))
+    n_low = torch.sum(low_par.to(torch.int32))
+    n_inl = torch.sum(inliers.to(torch.int32))
+    success = ((n_ok >= config.min_triangulated)
+               & (n_low <= config.max_low_parallax_frac
+                  * torch.clamp(n_inl, min=1)))
+    return InitializationResult(
+        success=success, Tcw=Tcw, ref_keypoints=state.ref_keypoints,
+        cur_keypoints=state.cur_keypoints, landmarks=X, point_ok=ok,
+        track_id=state.track_id), inliers
+
+
+def _refine(cam, result: InitializationResult, inliers,
+            config: InitializerConfig) -> InitializationResult:
+    """Two-view refinement of a successful attempt: alternate pose-only LM
+    against the triangulated structure with midpoint re-triangulation,
+    three times (initializer.py:337-350 of the JAX package)."""
+    global refines
+    from slambench.reference.solver import pose_only
+
+    T, X, ok = result.Tcw, result.landmarks, result.point_ok
+    ok_r = ok
+    for _ in range(3):
+        T = pose_only.camera_pose_optimization(cam, T, X,
+                                               result.cur_keypoints, ok)
+        X, ok_r, _ = reconstruct_points(cam, T, result.ref_keypoints,
+                                        result.cur_keypoints, inliers,
+                                        config)
+    refines += 1
+    return result._replace(Tcw=T, landmarks=X, point_ok=ok & ok_r)
+
+
+def try_initialize(cam, state: InitializerState, config: InitializerConfig,
+                   perm, gumbel) -> InitializationResult:
+    """Full rigid initialisation attempt on the current track set; the
+    refinement runs on success (one host read of the flag)."""
+    result, inliers = _attempt(cam, state, config, perm, gumbel)
+    if bool(result.success):
+        result = _refine(cam, result, inliers, config)
+    return result
+
+
+def init_step(state: InitializerState, pyramid, mask, perm, gumbel, cam,
+              klt_config: klt.KLTConfig, config: InitializerConfig):
+    """One init-phase frame (monocular_map_initializer.cc:100-133): track
+    against the reference; attempt the initialisation on the tracked set;
+    if matches dropped below min_matches or the window exceeded
+    max_frames_from_ref, re-seed the reference from this frame and reject
+    the attempt. Both flags are read in one host transfer; the reset (a
+    Shi-Tomasi detection + reference extraction) and the refinement run only
+    when their flag is set. Returns (state, result)."""
+    state_t, n = track_frame(state, pyramid, klt_config, config)
+    reset_needed = ((n < config.min_matches)
+                    | (state_t.frames_from_ref > config.max_frames_from_ref))
+    result, inliers = _attempt(cam, state_t, config, perm, gumbel)
+    do_reset, success = torch.stack([reset_needed,
+                                     result.success]).tolist()
+    if success:
+        result = _refine(cam, result, inliers, config)
+    state_new = state_t
+    if do_reset:
+        state_new = reset(pyramid, mask, state_t.next_track_id, klt_config,
+                          config)
+    return state_new, result._replace(success=result.success & ~reset_needed)
