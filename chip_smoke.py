@@ -97,7 +97,13 @@ prints its seconds):
      by the build (warm-up and capture) and added to by each replay; per
      frame one cudaGraphLaunch and no kernel launch on the host
      (torch.profiler's runtime calls), the kernels and device time of one
-     replay; ms per frame eager and replayed, a step's enqueue;
+     replay; the stage stamps (marks captured in both kinds: the replays
+     above carry them) strictly increasing in each kind's stage order,
+     each kind's stages and graph nodes at every mark the same in a second
+     build, and the counters a replay writes equal to the eager frame's
+     count under a tracer and to a recount of the map; the clock
+     calibration's bracket; ms per frame eager and replayed, a step's
+     enqueue;
   7. the main path: System.track_image_with_depth from frame 0 on the
      synthetic sequence at 640x480, P=768, 256 new keypoints, default
      initializer (1024 features), 60 frames: init frame, ms per init /
@@ -1431,6 +1437,7 @@ def graph_phase(dev, card: str, n: int = 20):
         raise AssertionError("graph: a state copied in was not picked up")
     if any(v != (None, None, 0, 0, True, True) for v in frozen.values()):
         raise AssertionError(f"graph: LOST freeze broken {frozen}")
+    stamps_check(fg, ref[0][0], frame(1), mask, cam, config)
 
     med = {kf: (statistics.median([m for m, k in zip(ms_b, kinds)
                                    if k == kf]),
@@ -1448,6 +1455,55 @@ def graph_phase(dev, card: str, n: int = 20):
               f"{rd['copies']} copies, {rd['busy_ms']:.2f} ms of device "
               f"time; host launch calls a frame {rd['host']}")
     return fg
+
+
+def stamps_check(fg, state, gray, mask, cam, config):
+    """[graph]'s stage stamps: a second build captures the same stages and
+    graph nodes at every mark; a replay of each kind from ``state`` stamps
+    strictly increasing times in its stage order, and writes the counters
+    that the eager frame counts under a tracer; the map's counters equal a
+    recount of the replayed state."""
+    from nrslam_tpu_torch.slam import frame_graph, system
+    from nrslam_tpu_torch.utils import profiler
+
+    clock = profiler.calibrate()
+    again = frame_graph.FrameGraph(state, gray, mask, cam, config)
+    marks = {kf: [(n, k) for n, _, k in fg.stamps[kf].marks]
+             for kf in (False, True)}
+    marks2 = {kf: [(n, k) for n, _, k in again.stamps[kf].marks]
+              for kf in (False, True)}
+    del again
+    if marks != marks2:
+        raise AssertionError(f"graph: two builds' marks differ: {marks} "
+                             f"against {marks2}")
+    for kf, label in ((False, "non-keyframe"), (True, "keyframe")):
+        s, _ = fg.step(state, gray, mask, kf)
+        torch.cuda.synchronize()
+        rd = fg.stamps[kf].read()
+        times = [a for _, a, _ in rd["stages"]] + [rd["stages"][-1][2]]
+        if any(b <= a for a, b in zip(times, times[1:])):
+            raise AssertionError(f"graph: {label} stamps do not increase "
+                                 f"in stage order: {rd['stages']}")
+        with profiler.tracing() as tracer:
+            with profiler.span(profiler.FRAME):
+                system.frame_step(state, gray, mask, cam, config, kf)
+            (rec,) = tracer.frames()
+        used = int(s.slot_used.sum())
+        with3d = int((s.slot_used & s.has_3d).sum())
+        if rec["counters"] != rd["counters"] \
+                or rd["counters"]["map.slots_used"] != used \
+                or rd["counters"]["map.slots_3d"] != with3d:
+            raise AssertionError(
+                f"graph: {label} counters {rd['counters']}, eager "
+                f"{rec['counters']}, recount {used} / {with3d}")
+        print(f"[graph] {label} stamps: {rd['nodes']} graph nodes; device "
+              "ms / nodes by stage " + ", ".join(
+                  f"{n} {(b - a) / 1e6:.3f} / {rd['stage_nodes'][n]}"
+                  for n, a, b in rd["stages"])
+              + f"; counters {rd['counters']} (eager and recount equal)")
+    print(f"[graph] stage stamps: two builds' marks equal {marks[False][-1]}"
+          f" / {marks[True][-1]} (end mark, nodes); clock calibration "
+          f"bracket {clock['bracket_ns'] / 1e3:.1f} us")
 
 
 def counts_and_handles():

@@ -71,7 +71,7 @@ from nrslam_tpu_torch.slam import mapping as mapping_mod
 from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam import tracking
 from nrslam_tpu_torch.slam.state import Config, SlamState
-from nrslam_tpu_torch.utils import tree
+from nrslam_tpu_torch.utils import profiler, tree
 from nrslam_tpu_torch.utils.tree import tree_map
 
 
@@ -146,15 +146,19 @@ def frame_step_unchecked(mesh: Mesh, local_state: SlamState, gray, mask,
     shard of the new state, the ``tracking.FrameResult``, the checksum's
     ``sharding.extremes`` [2, L]), and leaves the comparison
     (``sharding.agree``) to the caller. Device work and collectives only,
-    so a CUDA graph can capture it on an NCCL group."""
+    so a CUDA graph can capture it on an NCCL group. Its parts begin the
+    stages of ``system.frame_step`` (``profiler.stage``)."""
     axes = gather_axes(config, tuple(gray.shape))
     solves = solve_shard.mesh_solves(mesh)
     rows = sharding.MeshRows(mesh, config.max_points)
     old = local_state
+    profiler.stage("frame.pyramid")
     pyramid = klt.build_pyramid(gray, config.klt_config)
 
+    profiler.stage("tracking.klt")
     s = tracking.update_triangulated_points(local_state)
     s = tracking.data_association(s, pyramid, config)
+    profiler.stage("tracking.solve")
 
     refs = s.refs
     count, nbytes = sharding.traffic.count, sharding.traffic.bytes
@@ -165,6 +169,7 @@ def frame_step_unchecked(mesh: Mesh, local_state: SlamState, gray, mask,
     full = tracking.track_camera_and_deformation(full, cam, config, rows,
                                                  solves)
 
+    profiler.stage("tracking.reuse")
     mine = _slots(mesh, full, axes)._replace(refs=refs)
     mine = tracking.point_reuse(mine, pyramid, cam, config)
     keypoints, status = sharding.all_gather_rows(
@@ -174,12 +179,15 @@ def frame_step_unchecked(mesh: Mesh, local_state: SlamState, gray, mask,
     n3d = torch.sum(state_mod.tracked_with_3d(full).to(torch.int32),
                     dtype=torch.int32)
     if make_kf:
+        profiler.stage("tracking.keyframe")
         full = tracking.add_keyframe_features(full, pyramid, mask, config,
                                               rows)
+    profiler.stage("tracking.bookkeeping")
     full = state_mod.insert_temporal_snapshot(full)
     lost = full.lost | (n3d < config.min_tracked_exit)
     full = mapping_mod.do_mapping(full._replace(lost=lost), cam, config,
                                   make_kf, rows, solves)
+    profiler.stage("frame.writeback")
     check = sharding.extremes(mesh, sharding.digest(checked_leaves(full)))
 
     new = _slots(mesh, full, axes)._replace(refs=refs)

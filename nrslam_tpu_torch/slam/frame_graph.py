@@ -27,6 +27,14 @@ frame's (``parallel.frame_graph_shard.ShardFrameGraph``) share: the
 packing, the warm-up on a scratch copy on a side stream, one capture per
 kind with its own pool, and the replay with its snapshot.
 
+Each kind's capture also takes the frame's stage stamps
+(``utils.profiler.Stamps``): a mark of the device's timer at every stage
+boundary that ``profiler.stage`` names in ``frame_step`` (and an end
+mark), and the counters ``profiler.device_count`` names, each into a slot
+of a small int64 buffer the kind owns; the graph's nodes are counted at
+each mark. Both kinds always carry them, so the graph that runs untraced
+is the one a tracer reads (``profiler.read_stamps``, after the frame).
+
 CUDA tensors only; on a CPU tensor the constructor raises (the CPU runs
 ``system.frame_step``). A capture or a replay that fails raises: nothing
 falls back to the eager frame.
@@ -42,7 +50,7 @@ from nrslam_tpu_torch.geometry import cameras
 from nrslam_tpu_torch.slam import system as system_mod
 from nrslam_tpu_torch.slam import tracking
 from nrslam_tpu_torch.slam.state import Config
-from nrslam_tpu_torch.utils import tree
+from nrslam_tpu_torch.utils import profiler, tree
 
 # The counted module globals a capture sets, by owner: counts (ints added
 # to on every replay), counts by phase (dicts, mutated in place), handles
@@ -183,9 +191,10 @@ class KindGraphs:
     ``replays`` counts replays; ``launches[kf]`` the counts the capture of
     kind ``kf`` recorded (``record``: what each replay adds);
     ``pool_bytes[kf]`` the device memory its capture reserved;
-    ``kernels[kf]`` the device kernels of one replay of that kind, once
-    ``profile_step`` has read them; ``build_s`` / ``capture_s`` the
-    seconds of the whole build and of each capture."""
+    ``stamps[kf]`` its ``profiler.Stamps`` (the stage names in capture
+    order, the graph's nodes at each mark, the counters, and the buffer a
+    replay writes them into); ``build_s`` / ``capture_s`` the seconds of
+    the whole build and of each capture."""
 
     # torch.cuda.graph's capture_error_mode.
     capture_mode = "global"
@@ -198,7 +207,7 @@ class KindGraphs:
         self.gray = gray.contiguous().clone()
         self.mask = mask.contiguous().clone()
         self.replays = 0
-        self.launches, self.pool_bytes, self.kernels = {}, {}, {}
+        self.launches, self.pool_bytes, self.stamps = {}, {}, {}
         self.capture_s = {}
         self._handles, self._graphs, self._last = {}, {}, None
         t0 = time.perf_counter()
@@ -214,16 +223,17 @@ class KindGraphs:
     def _build(self) -> None:
         """Warm up one frame of each kind on a scratch copy of the state on
         a side stream (the kernel library, cached device constants, the
-        cuBLAS handles, a process group's communicator), then capture both
-        kinds; the static state does not advance, and the counted globals
-        end as they began."""
+        cuBLAS handles, a process group's communicator; no mark or count
+        is taken, ``profiler.QUIET``), then capture both kinds; the static
+        state does not advance, and the counted globals end as they
+        began."""
         self._check()
         dev = self.device
 
         def warm_up():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), profiler.recording(profiler.QUIET):
                 scratch = tree.unpack(self.buf.clone(), self.packing)
                 for kf in (False, True):
                     self._body(scratch, kf)
@@ -231,6 +241,8 @@ class KindGraphs:
             torch.cuda.synchronize(dev)
 
         record(warm_up)
+        for kf in (False, True):
+            self.stamps[kf] = profiler.Stamps(dev)
         for kf in (False, True):
             # The capture empties the allocator's cache first too: what is
             # reserved after it beyond this is the graph's pool.
@@ -245,8 +257,10 @@ class KindGraphs:
 
     def _capture(self, kf: bool):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode=self.capture_mode):
+        with torch.cuda.graph(graph, capture_error_mode=self.capture_mode), \
+                profiler.recording(self.stamps[kf]) as stamps:
             self._body(self.views, kf)
+            stamps.end()
         torch.cuda.synchronize(self.device)
         return graph
 
@@ -260,14 +274,18 @@ class KindGraphs:
             raise ValueError(f"{type(self).__name__}: frame "
                              f"{list(gray.shape)}, mask {list(mask.shape)}; "
                              f"captured for {list(self.gray.shape)}")
-        if state is not self._last:
-            tree.copy_(self.views[0], state)
-        self.gray.copy_(gray)
-        self.mask.copy_(mask)
-        self._graphs[kf].replay()
-        self.replays += 1
-        add_recorded(self.launches[kf], self._handles[kf])
-        out = tree.unpack(self.buf.clone(), self.packing)
+        with profiler.span("nrslam.frame_graph.copy_in"):
+            if state is not self._last:
+                tree.copy_(self.views[0], state)
+            self.gray.copy_(gray)
+            self.mask.copy_(mask)
+        with profiler.span("nrslam.frame_graph.launch"):
+            self._graphs[kf].replay()
+        with profiler.span("nrslam.frame_graph.count"):
+            self.replays += 1
+            add_recorded(self.launches[kf], self._handles[kf])
+        with profiler.span("nrslam.frame_graph.snapshot"):
+            out = tree.unpack(self.buf.clone(), self.packing)
         self._last = out[0]
         return out
 
@@ -311,13 +329,13 @@ _HOST_LAUNCHES = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
 
 def profile_step(fg: KindGraphs, state, gray, mask, make_keyframe: bool):
     """``fg.step`` under ``torch.profiler``. Returns (state, result,
-    reading): the device kernels of the replay (also kept as
-    ``fg.kernels[kf]``), their summed device time in ms (``busy_ms``), the
-    step's host-side launch calls by runtime API name (``host``), its host
-    wall in ms to the end of its enqueue (``enqueue_ms``) and to the end
-    of the device work (``wall_ms``), the port's own kernels in the order
-    they ran (``ours``: (name, device ms) of each kernel whose name holds
-    ``nrslam``), and NCCL's kernels (``nccl``: device ms, count)."""
+    reading): the device kernels of the replay, their summed device time
+    in ms (``busy_ms``), the step's host-side launch calls by runtime API
+    name (``host``), its host wall in ms to the end of its enqueue
+    (``enqueue_ms``) and to the end of the device work (``wall_ms``), the
+    port's own kernels in the order they ran (``ours``: (name, device ms)
+    of each kernel whose name holds ``nrslam``), and NCCL's kernels
+    (``nccl``: device ms, count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(fg.device)
@@ -349,5 +367,4 @@ def profile_step(fg: KindGraphs, state, gray, mask, make_keyframe: bool):
     nccl = [e for e in kernels if "nccl" in e.key.lower()]
     reading["nccl"] = (sum(e.device_time_total for e in nccl) / 1e3,
                        sum(e.count for e in nccl))
-    fg.kernels[bool(make_keyframe)] = reading["kernels"]
     return out[0], out[1], reading

@@ -20,6 +20,13 @@ run on the host's LAPACK whatever the device: the refit's normal matrix
 spans ~1e7 in eigenvalue, and cuSOLVER's float32 ``eigh`` on an H100
 returned a smallest eigenvalue of -2.8e-7 where LAPACK gives 1.28e-5 for
 the same matrix, enough to turn the refit E into one that loses inliers.
+
+While a tracer is on (``utils.profiler.tracing``), the stages are spans
+(``nrslam.init.reset``, ``klt``, ``kmeans``, ``ransac``, ``reconstruct``,
+``refine``), and so are the host's LAPACK calls (``nrslam.init.lapack``)
+and every wait of the host on the device (``nrslam.init.sync``: the copies
+to the host and the flags read), so that an init frame's wall splits into
+issue, sync and LAPACK.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 
 from nrslam_tpu_torch.geometry import cameras, se3, triangulation
 from nrslam_tpu_torch.ops import klt, shi_tomasi
+from nrslam_tpu_torch.utils import profiler
 
 # Two-view refinements run (each is three pose-only solves; on the card
 # three launches of the pose-only kernel).
@@ -78,6 +86,12 @@ def reset(pyramid, mask, next_track_id, klt_config: klt.KLTConfig,
           config: InitializerConfig) -> InitializerState:
     """Fresh features + KLT reference (ResetInitialization,
     monocular_map_initializer.cc:81-98)."""
+    with profiler.span("nrslam.init.reset"):
+        return _reset(pyramid, mask, next_track_id, klt_config, config)
+
+
+def _reset(pyramid, mask, next_track_id, klt_config: klt.KLTConfig,
+           config: InitializerConfig) -> InitializerState:
     img = pyramid[0][0]
     xy, valid, _ = shi_tomasi.detect(img, config.max_features,
                                      nms_radius=config.nms_radius, mask=mask)
@@ -137,7 +151,10 @@ def _kmeans(points, valid, k: int, iters: int, perm):
 
 def _on_host(fn, *args):
     """``fn`` on host copies of ``args``; results back on their device."""
-    out = fn(*(a.cpu() for a in args))
+    with profiler.span("nrslam.init.sync"):
+        host = [a.cpu() for a in args]
+    with profiler.span("nrslam.init.lapack"):
+        out = fn(*host)
     return tuple(o.to(args[0].device) for o in out)
 
 
@@ -176,10 +193,18 @@ def find_essential_ransac(ref_rays, cur_rays, tracked,
     """Batched stratified RANSAC + least-squares refit. ``perm [N]`` seeds
     the kmeans, ``gumbel [H, N]`` picks one tracked member of every cluster
     per hypothesis (argmax of the noise). Returns (E, inliers [N])."""
-    labels = _kmeans(ref_rays[:, :2] / torch.clamp(ref_rays[:, 2:3],
-                                                   min=1e-6),
-                     tracked, config.kmeans_clusters, config.kmeans_iters,
-                     perm)
+    with profiler.span("nrslam.init.ransac"):
+        return _essential_ransac(ref_rays, cur_rays, tracked, config, perm,
+                                 gumbel)
+
+
+def _essential_ransac(ref_rays, cur_rays, tracked, config: InitializerConfig,
+                      perm, gumbel):
+    with profiler.span("nrslam.init.kmeans"):
+        labels = _kmeans(ref_rays[:, :2] / torch.clamp(ref_rays[:, 2:3],
+                                                       min=1e-6),
+                         tracked, config.kmeans_clusters,
+                         config.kmeans_iters, perm)
     clusters = torch.arange(config.kmeans_clusters, device=labels.device)
     member = tracked[None] & (labels[None] == clusters[:, None])   # [C, N]
     w = torch.where(member[None], gumbel[:, None, :],
@@ -264,9 +289,11 @@ def _attempt(cam, state: InitializerState, config: InitializerConfig, perm,
     cur_rays = cameras.unit_rays(cam, state.cur_keypoints)
     E, inliers = find_essential_ransac(ref_rays, cur_rays, tracked, config,
                                        perm, gumbel)
-    Tcw = reconstruct_cameras(E, ref_rays, cur_rays, inliers)
-    X, ok, low_par = reconstruct_points(cam, Tcw, state.ref_keypoints,
-                                        state.cur_keypoints, inliers, config)
+    with profiler.span("nrslam.init.reconstruct"):
+        Tcw = reconstruct_cameras(E, ref_rays, cur_rays, inliers)
+        X, ok, low_par = reconstruct_points(cam, Tcw, state.ref_keypoints,
+                                            state.cur_keypoints, inliers,
+                                            config)
     n_ok = torch.sum(ok.to(torch.int32))
     n_low = torch.sum(low_par.to(torch.int32))
     n_inl = torch.sum(inliers.to(torch.int32))
@@ -289,12 +316,13 @@ def _refine(cam, result: InitializationResult, inliers,
 
     T, X, ok = result.Tcw, result.landmarks, result.point_ok
     ok_r = ok
-    for _ in range(3):
-        T = pose_only.camera_pose_optimization(cam, T, X,
-                                               result.cur_keypoints, ok)
-        X, ok_r, _ = reconstruct_points(cam, T, result.ref_keypoints,
-                                        result.cur_keypoints, inliers,
-                                        config)
+    with profiler.span("nrslam.init.refine"):
+        for _ in range(3):
+            T = pose_only.camera_pose_optimization(cam, T, X,
+                                                   result.cur_keypoints, ok)
+            X, ok_r, _ = reconstruct_points(cam, T, result.ref_keypoints,
+                                            result.cur_keypoints, inliers,
+                                            config)
     refines += 1
     return result._replace(Tcw=T, landmarks=X, point_ok=ok & ok_r)
 
@@ -304,7 +332,9 @@ def try_initialize(cam, state: InitializerState, config: InitializerConfig,
     """Full rigid initialisation attempt on the current track set; the
     refinement runs on success (one host read of the flag)."""
     result, inliers = _attempt(cam, state, config, perm, gumbel)
-    if bool(result.success):
+    with profiler.span("nrslam.init.sync"):
+        success = bool(result.success)
+    if success:
         result = _refine(cam, result, inliers, config)
     return result
 
@@ -318,12 +348,14 @@ def init_step(state: InitializerState, pyramid, mask, perm, gumbel, cam,
     the attempt. Both flags are read in one host transfer; the reset (a
     Shi-Tomasi detection + reference extraction) and the refinement run only
     when their flag is set. Returns (state, result)."""
-    state_t, n = track_frame(state, pyramid, klt_config, config)
+    with profiler.span("nrslam.init.klt"):
+        state_t, n = track_frame(state, pyramid, klt_config, config)
     reset_needed = ((n < config.min_matches)
                     | (state_t.frames_from_ref > config.max_frames_from_ref))
     result, inliers = _attempt(cam, state_t, config, perm, gumbel)
-    do_reset, success = torch.stack([reset_needed,
-                                     result.success]).tolist()
+    with profiler.span("nrslam.init.sync"):
+        do_reset, success = torch.stack([reset_needed,
+                                         result.success]).tolist()
     if success:
         result = _refine(cam, result, inliers, config)
     state_new = state_t

@@ -25,6 +25,7 @@ from nrslam_tpu_torch.slam.state import Config, SlamState
 from nrslam_tpu_torch.solver import bundle_adjustment as ba
 from nrslam_tpu_torch.solver import deformable_triangulation as dt
 from nrslam_tpu_torch.solver import pose_deformation as pd
+from nrslam_tpu_torch.utils import profiler
 
 
 def _last_snapshot_index(state: SlamState):
@@ -185,6 +186,8 @@ def landmark_triangulation(state: SlamState, cam, config: Config,
     use_def = n_def >= (1.5 * n_rigid)
 
     insert = torch.where(use_rigid, ok_rigid, use_def & ok_def)
+    profiler.device_count("mapping.tri_candidates", candidates)
+    profiler.device_count("mapping.triangulated", insert)
     X_new = torch.where(use_rigid, X_rigid, X_def)
 
     positions = torch.where(insert[:, None], X_new, state.positions)
@@ -257,7 +260,9 @@ def do_mapping(state: SlamState, cam: cameras.Camera, config: Config,
                rows: graph_mod.Rows = graph_mod.ALL,
                solves: tracking.Solves = tracking.WHOLE) -> SlamState:
     """Mapping::DoMapping (mapping.cc:36-54); ``solves.ba`` runs the
-    keyframe's window BA."""
+    keyframe's window BA. Either begins a stage of the captured frame."""
     if has_new_keyframe:
+        profiler.stage("mapping.ba")
         return keyframe_mapping(state, cam, config, rows, solves)
+    profiler.stage("mapping.triangulation")
     return landmark_triangulation(state, cam, config, rows)

@@ -19,6 +19,11 @@ On the card, ``System`` builds a ``frame_graph.FrameGraph`` (both frame
 kinds captured as CUDA graphs) at its first steady frame and replays it for
 every steady frame after, a re-initialised map included; on the CPU it
 calls ``frame_step``.
+
+While a tracer is on (``utils.profiler.tracing``), each ``track_image``
+call is one frame record: its ``nrslam.`` spans, its kind, its counters
+and, for a replayed frame, the device stage times its graph stamped
+(read once after the frame's LOST read).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from nrslam_tpu_torch.slam import mapping as mapping_mod
 from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam import tracking as tracking_mod
 from nrslam_tpu_torch.slam.state import Config
-from nrslam_tpu_torch.utils import stats, tree
+from nrslam_tpu_torch.utils import profiler, stats, tree
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 TRACKING = "TRACKING"
@@ -134,16 +139,20 @@ def frame_step(state, gray, mask, cam: cameras.Camera, config: Config,
     """One steady-state SLAM frame (System::TrackImage after init).
     Returns (state, tracking.FrameResult)."""
     old = state
+    profiler.stage("frame.pyramid")
     pyramid = klt.build_pyramid(gray, config.klt_config)
     state, result = tracking_mod.process_frame(state, pyramid, mask, cam,
                                                config, make_keyframe)
     state = mapping_mod.do_mapping(state, cam, config,
                                    has_new_keyframe=make_keyframe)
+    profiler.stage("frame.writeback")
     state = tree.where(old.lost, old, state)
     result = result._replace(
         n_tracked_3d=torch.where(old.lost, torch.zeros_like(
             result.n_tracked_3d), result.n_tracked_3d),
         lost=old.lost | result.lost)
+    profiler.device_count("map.slots_used", state.slot_used)
+    profiler.device_count("map.slots_3d", state.slot_used & state.has_3d)
     return state, result
 
 
@@ -227,38 +236,56 @@ class System:
     # -- main entry points --------------------------------------------------
 
     def track_image(self, img) -> dict:
-        gray = self._preprocess(img)
+        with profiler.span(profiler.FRAME):
+            return self._track_image(img)
+
+    def _track_image(self, img) -> dict:
+        with profiler.span("nrslam.system.preprocess"):
+            gray = self._preprocess(img)
         if self._image_shape is None:
             self._image_shape = tuple(gray.shape)
-        mask = self._mask(gray)
+        with profiler.span("nrslam.system.mask"):
+            mask = self._mask(gray)
 
         if self.status == NOT_INITIALIZED:
-            pyramid = klt.build_pyramid(gray, self.config.klt_config)
-            self._initialize(pyramid, mask)
+            profiler.note(kind="init")
+            with profiler.span("nrslam.system.init"):
+                pyramid = klt.build_pyramid(gray, self.config.klt_config)
+                self._initialize(pyramid, mask)
             return {"status": self.status}
 
         make_kf = self._frames_since_kf >= self.config.keyframe_every
         self._frames_since_kf = 0 if make_kf else self._frames_since_kf + 1
+        profiler.note(kind="kf" if make_kf else "nonkf")
         if self.device.type == "cuda":
             if self.frame_graph is None:
                 from nrslam_tpu_torch.slam import frame_graph
-                self.frame_graph = frame_graph.FrameGraph(
-                    self.state, gray, mask, self.cam, self.config)
-            self.state, frame_result = self.frame_graph.step(
-                self.state, gray, mask, make_kf)
+                with profiler.span("nrslam.system.frame_graph_build"):
+                    self.frame_graph = frame_graph.FrameGraph(
+                        self.state, gray, mask, self.cam, self.config)
+            with profiler.span("nrslam.system.replay"):
+                self.state, frame_result = self.frame_graph.step(
+                    self.state, gray, mask, make_kf)
         else:
-            self.state, frame_result = frame_step(
-                self.state, gray, mask, self.cam, self.config, make_kf)
+            with profiler.span("nrslam.system.frame_step"):
+                self.state, frame_result = frame_step(
+                    self.state, gray, mask, self.cam, self.config, make_kf)
         self._frame_count += 1
 
+        lost = False
         if self._frame_count % self.lost_check_every == 0:
-            if bool(frame_result.lost):
-                if self.auto_reinitialize:
-                    self.status = NOT_INITIALIZED
-                    self.state = None
-                    self.init_state = None
-                else:
-                    self.status = LOST
+            with profiler.span("nrslam.system.lost_read"):
+                lost = bool(frame_result.lost)
+        if self.frame_graph is not None:
+            with profiler.span("nrslam.system.stamps"):
+                profiler.read_stamps(self.frame_graph.stamps[make_kf])
+        if lost:
+            if self.auto_reinitialize:
+                self.status = NOT_INITIALIZED
+                self.state = None
+                self.init_state = None
+            else:
+                self.status = LOST
         return {"status": self.status,
                 "n_tracked_3d": frame_result.n_tracked_3d,
                 "keyframe": make_kf}
@@ -312,14 +339,19 @@ class System:
         if self._init_count % self.init_check_every:
             return
 
-        flags = torch.stack([r.success for r, _ in self._init_ring]).tolist()
+        with profiler.span("nrslam.init.sync"):
+            flags = torch.stack([r.success
+                                 for r, _ in self._init_ring]).tolist()
         ring = self._init_ring
         self._init_ring = []
         for ok, (result, pyr) in zip(flags, ring):
             if ok:
-                state = state_mod.empty_state(self.config, self._image_shape,
-                                              self.device)
-                self.state = bootstrap_map(state, result, pyr, self.config)
+                with profiler.span("nrslam.system.bootstrap_map"):
+                    state = state_mod.empty_state(self.config,
+                                                  self._image_shape,
+                                                  self.device)
+                    self.state = bootstrap_map(state, result, pyr,
+                                               self.config)
                 self.status = TRACKING
                 self.init_state = None
                 self._frames_since_kf = 0

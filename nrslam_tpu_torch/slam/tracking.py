@@ -21,6 +21,7 @@ from nrslam_tpu_torch.slam import state as state_mod
 from nrslam_tpu_torch.slam.state import Config, SlamState
 from nrslam_tpu_torch.solver import (bundle_adjustment, pose_deformation,
                                      pose_only)
+from nrslam_tpu_torch.utils import profiler
 
 
 class Solves(NamedTuple):
@@ -86,6 +87,7 @@ def track_camera_and_deformation(state: SlamState, cam, config: Config,
                        with3d, pairs, state.scale)
 
     accept = res.reproj_inlier & res.deform_ok
+    profiler.device_count("tracking.rejected", with3d & ~accept)
     positions = torch.where(accept[:, None], state.positions + res.flows,
                             state.positions)
     status = torch.where(with3d & ~accept, klt.TRACKED, state.status)
@@ -141,6 +143,8 @@ def point_reuse(state: SlamState, pyramid, cam, config: Config) -> SlamState:
 
     err = triangulation.squared_reprojection_error(proj, pts)
     reacquired = candidates & (st == klt.TRACKED_WITH_3D) & (err <= 5.99)
+    profiler.device_count("tracking.reuse_candidates", candidates)
+    profiler.device_count("tracking.reused", reacquired)
     return state._replace(
         keypoints=torch.where(reacquired[:, None], pts, state.keypoints),
         status=torch.where(reacquired, klt.TRACKED_WITH_3D, state.status))
@@ -196,6 +200,7 @@ def add_keyframe_features(state: SlamState, pyramid, mask, config: Config,
         0, slot_idx, torch.where(can_place, klt.TRACKED, status[slot_idx]))
     has_3d = state.has_3d.index_copy(
         0, slot_idx, state.has_3d[slot_idx] & ~can_place)
+    profiler.device_count("keyframe.new_features", can_place)
 
     graph = graph_mod.remove_landmarks(state.graph, dead, rows)
     state = state._replace(
@@ -223,16 +228,22 @@ class FrameResult(NamedTuple):
 
 def process_frame(state: SlamState, pyramid, mask, cam: cameras.Camera,
                   config: Config, make_keyframe: bool):
-    """One tracking step (Tracking::TrackImage steady state)."""
+    """One tracking step (Tracking::TrackImage steady state); each part
+    begins a stage of the captured frame (``profiler.stage``)."""
+    profiler.stage("tracking.klt")
     state = update_triangulated_points(state)
     state = data_association(state, pyramid, config)
+    profiler.stage("tracking.solve")
     state = track_camera_and_deformation(state, cam, config)
+    profiler.stage("tracking.reuse")
     state = point_reuse(state, pyramid, cam, config)
 
     n3d = torch.sum(state_mod.tracked_with_3d(state).to(torch.int32),
                     dtype=torch.int32)
     if make_keyframe:
+        profiler.stage("tracking.keyframe")
         state = create_keyframe(state, pyramid, mask, config)
+    profiler.stage("tracking.bookkeeping")
     state = state_mod.insert_temporal_snapshot(state)
     lost = state.lost | (n3d < config.min_tracked_exit)
     state = state._replace(lost=lost)

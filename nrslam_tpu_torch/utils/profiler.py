@@ -1,21 +1,26 @@
-"""Stage timing (counterpart of nrslam_tpu/utils/profiler.py).
+"""Stage timing and the program's own spans, stage stamps and counters
+(counterpart of nrslam_tpu/utils/profiler.py).
 
 ``TimeProfiler`` times named host sections (tic / toc, mean / median /
 sigma, a statistics file), as the reference's TimeProfiler
-(utilities/time_profiler.{h,cc}) would have if it were called.
-``chained_timeit`` times calls as the host issues them, ``device_timeit``
-a chain of calls captured in one CUDA graph (``Chain``), both with CUDA
-events ending in a synchronize; ``device_reading`` reads one call's
-kernels under ``torch.profiler``; ``device_trace`` records a
-``torch.profiler`` trace of a block and writes it as a Chrome trace;
-``gpu_header`` names the card, its power limit and its SM clock. The
-device timers need a CUDA device and raise without one: they never time
-the CPU under a device's name.
+(utilities/time_profiler.{h,cc}) would have if it were called; as the
+tracer that ``tracing`` turns on it also records the program's spans
+(``span``), one record per ``System.track_image`` call (``frames``), the
+device stage times of a replayed frame (``stage``, ``Stamps``) and the
+per-frame counters (``device_count``). ``chained_timeit`` times calls as
+the host issues them, ``device_timeit`` a chain of calls captured in one
+CUDA graph (``Chain``), both with CUDA events ending in a synchronize;
+``device_reading`` reads one call's kernels under ``torch.profiler``;
+``device_trace`` records a ``torch.profiler`` trace of a block and writes
+it as a Chrome trace; ``gpu_header`` names the card, its power limit and
+its SM clock. The device timers need a CUDA device and raise without one:
+they never time the CPU under a device's name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
 import time
 from collections import defaultdict
@@ -24,10 +29,34 @@ import numpy as np
 import torch
 
 
+# The root span of a frame record: one ``System.track_image`` call.
+FRAME = "nrslam.system.track_image"
+# The name of the mark that ends a captured frame's last stage.
+END = "end"
+# Slots of a kind's stamp buffer (marks and counters together).
+SLOTS = 64
+
+
 class TimeProfiler:
+    """Named host sections (``tic`` / ``toc`` / ``section``) and, while it
+    is the active tracer (``tracing``), the program's spans: each ``(name,
+    start_ns, end_ns, parent, frame)`` on ``time.perf_counter_ns``, where
+    ``parent`` is the index of the enclosing span in the same list (None
+    at a root) and ``frame`` the index of the frame record. A root span
+    named ``FRAME`` opens a frame record; ``frames`` hands the finished
+    records over. A span outside a frame record counts in ``statistics``
+    only."""
+
     def __init__(self):
         self._open = {}
         self._samples = defaultdict(list)
+        self._self = defaultdict(list)
+        self._stack = []
+        self._frame = None
+        self._records = []
+        self._n_frames = 0
+        # Device clock against the host's (``calibrate``), once read.
+        self.clock = None
 
     def tic(self, name: str):
         self._open[name] = time.perf_counter()
@@ -46,20 +75,356 @@ class TimeProfiler:
             self.toc(name)
 
     def statistics(self):
-        """Per section: mean_ms, median_ms (the steady-state measure: the
-        first samples carry one-off costs such as the kernels' build),
-        sigma_ms, count."""
-        return {name: dict(mean_ms=float(np.mean(s) * 1e3),
-                           median_ms=float(np.median(s) * 1e3),
-                           sigma_ms=float(np.std(s) * 1e3),
-                           count=len(s))
-                for name, s in self._samples.items()}
+        """Per section and span name: mean_ms, median_ms (the steady-state
+        measure: the first samples carry one-off costs such as the kernels'
+        build), sigma_ms, count; a span also self_ms, its mean duration
+        less what its child spans cover."""
+        out = {name: dict(mean_ms=float(np.mean(s) * 1e3),
+                          median_ms=float(np.median(s) * 1e3),
+                          sigma_ms=float(np.std(s) * 1e3),
+                          count=len(s))
+               for name, s in self._samples.items()}
+        for name, s in self._self.items():
+            out[name]["self_ms"] = float(np.mean(s) * 1e3)
+        return out
 
     def save_statistics_to_file(self, path: str):
         with open(path, "w") as f:
             for name, st in sorted(self.statistics().items()):
                 f.write(f"{name}: mean {st['mean_ms']:.3f} ms "
                         f"sigma {st['sigma_ms']:.3f} ms n={st['count']}\n")
+
+    # -- spans and frame records ----------------------------------------
+
+    def span(self, name: str) -> "_Span":
+        return _Span(self, name)
+
+    def _enter(self, sp: "_Span") -> None:
+        parent = self._stack[-1] if self._stack else None
+        if parent is None and sp.name == FRAME:
+            self._frame = {"frame": self._n_frames, "spans": [],
+                           "counters": {}}
+            self._n_frames += 1
+        if self._frame is not None:
+            sp.into = self._frame["spans"]
+            sp.index = len(sp.into)
+            sp.parent = parent.index if parent is not None else None
+            sp.into.append(None)
+        self._stack.append(sp)
+        if torch.autograd._profiler_enabled():
+            sp.rf = torch.profiler.record_function(sp.name)
+            sp.rf.__enter__()
+        sp.start = time.perf_counter_ns()
+
+    def _exit(self, sp: "_Span") -> None:
+        end = time.perf_counter_ns()
+        if sp.rf is not None:
+            sp.rf.__exit__(None, None, None)
+        self._stack.pop()
+        dur = end - sp.start
+        if self._stack:
+            self._stack[-1].child_ns += dur
+        if sp.into is not None:
+            sp.into[sp.index] = (sp.name, sp.start, end, sp.parent,
+                                 self._frame["frame"])
+        self._samples[sp.name].append(dur / 1e9)
+        self._self[sp.name].append((dur - sp.child_ns) / 1e9)
+        if not self._stack and self._frame is not None:
+            self._records.append(self._frame)
+            self._frame = None
+
+    def note(self, **fields) -> None:
+        """Set fields of the frame record in flight (none: nothing)."""
+        if self._frame is not None:
+            self._frame.update(fields)
+
+    def count(self, name: str, total) -> None:
+        """Add a counter's total (an int or a 0-d tensor, read when the
+        records are taken) to the frame record in flight."""
+        if self._frame is not None:
+            c = self._frame["counters"]
+            c[name] = c[name] + total if name in c else total
+
+    def add_device(self, stamps: "Stamps") -> None:
+        """The device reading of the frame in flight: one copy of
+        ``stamps``' buffer (``Stamps.read``), its stages put on the host
+        spans' clock (``calibrate``)."""
+        if self._frame is None:
+            return
+        if self.clock is None:
+            self.clock = calibrate(stamps.buf.device)
+        r = stamps.read()
+        off = self.clock["offset_ns"]
+        self._frame["device"] = {
+            "stages": [(n, a - off, b - off) for n, a, b in r["stages"]],
+            "nodes": r["nodes"], "stage_nodes": r["stage_nodes"]}
+        for name, v in r["counters"].items():
+            self.count(name, v)
+
+    def frames(self) -> list:
+        """The finished frame records, handed over (the tracer keeps none):
+        each a dict of ``frame`` (its index), ``kind`` (``init``, ``kf`` or
+        ``nonkf``, as ``System`` notes it), ``spans``, ``counters`` (name
+        -> int) and, for a replayed frame read by ``add_device``,
+        ``device``: ``stages`` ((name, start_ns, end_ns) on the spans'
+        clock, in capture order), ``nodes`` (the captured graph's) and
+        ``stage_nodes`` (name -> nodes from its mark to the next)."""
+        out, self._records = self._records, []
+        for r in out:
+            r["counters"] = {k: int(v) for k, v in r["counters"].items()}
+        return out
+
+
+class _Span:
+    """One span of a tracer: a context manager (``TimeProfiler.span``)."""
+
+    __slots__ = ("tracer", "name", "start", "child_ns", "parent", "index",
+                 "into", "rf")
+
+    def __init__(self, tracer: TimeProfiler, name: str):
+        self.tracer, self.name = tracer, name
+        self.child_ns, self.rf, self.into = 0, None, None
+
+    def __enter__(self):
+        self.tracer._enter(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer._exit(self)
+        return False
+
+
+class _NoSpan:
+    """What ``span`` returns while no tracer is on: nothing happens."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+# The active tracer (``tracing``) and the stamps a capture writes
+# (``recording``).
+_tracer = None
+_recording = None
+
+
+@contextlib.contextmanager
+def tracing(tracer: TimeProfiler = None):
+    """Turn the tracer on for the block (``tracer``, else a new
+    ``TimeProfiler``), and yield it. Where CUDA is already in use, its
+    clock is read against the host's first (``calibrate``); else at the
+    first device reading. One tracer at a time."""
+    global _tracer
+    if _tracer is not None:
+        raise RuntimeError("a tracer is already on")
+    t = tracer if tracer is not None else TimeProfiler()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        t.clock = calibrate()
+    _tracer = t
+    try:
+        yield t
+    finally:
+        _tracer = None
+
+
+def span(name: str):
+    """A span of the active tracer, or the shared no-op ``NO_SPAN``."""
+    t = _tracer
+    return NO_SPAN if t is None else _Span(t, name)
+
+
+def note(**fields) -> None:
+    """``TimeProfiler.note`` on the active tracer, if any."""
+    t = _tracer
+    if t is not None:
+        t.note(**fields)
+
+
+def frames() -> list:
+    """The active tracer's finished frame records (``TimeProfiler.frames``;
+    none while no tracer is on)."""
+    return _tracer.frames() if _tracer is not None else []
+
+
+def read_stamps(stamps: "Stamps") -> None:
+    """``TimeProfiler.add_device`` on the active tracer, if any: one
+    synchronising copy of the stamp buffer."""
+    t = _tracer
+    if t is not None:
+        t.add_device(stamps)
+
+
+def stage(name: str) -> None:
+    """The boundary before stage ``name`` of a frame: while a capture
+    records into ``Stamps`` (``recording``), a mark of the device's
+    timer into its next slot; else nothing."""
+    r = _recording
+    if r is not None:
+        r.stage(name)
+
+
+def device_count(name: str, x: torch.Tensor) -> None:
+    """Counter ``name`` += the number of true elements of ``x`` (its sum):
+    while a capture records, a reduction into the next slot of its
+    ``Stamps``, inside the graph; else, while a tracer is on and no
+    stream captures, into the frame record in flight (read when the
+    records are taken); else nothing."""
+    r = _recording
+    if r is not None:
+        r.count(name, x)
+        return
+    t = _tracer
+    if t is not None and not (x.is_cuda
+                              and torch.cuda.is_current_stream_capturing()):
+        t.count(name, torch.sum(x, dtype=torch.int64))
+
+
+@contextlib.contextmanager
+def recording(stamps):
+    """``stage`` and ``device_count`` write into ``stamps`` in the block
+    (a capture's; ``QUIET`` drops them, eager counts included)."""
+    global _recording
+    saved, _recording = _recording, stamps
+    try:
+        yield stamps
+    finally:
+        _recording = saved
+
+
+class _Quiet:
+    """A recording that drops every mark and count."""
+
+    def stage(self, name: str) -> None:
+        pass
+
+    def count(self, name: str, x) -> None:
+        pass
+
+
+QUIET = _Quiet()
+
+
+class Stamps:
+    """The stage stamps and counters of one captured frame kind: ``buf``, a
+    static int64 buffer of ``SLOTS`` on the device (no part of the packed
+    state), into which the capture's marks (``stage``: the device's
+    ``%globaltimer`` in ns, ``csrc/trace_mark.cu``) and counts
+    (``device_count``: a sum) each take the next slot. ``marks`` holds
+    (stage name, slot, the graph's nodes at the mark) in capture order,
+    ending with ``END``; ``counters`` (name, slot). ``mark(buf, slot)``
+    and ``nodes(device)`` default to the card's (``trace_mark.cu``); the
+    CPU tests pass their own."""
+
+    def __init__(self, device, mark=None, nodes=None):
+        self.buf = torch.zeros(SLOTS, dtype=torch.int64, device=device)
+        self.marks, self.counters = [], []
+        self._mark = mark or card_mark
+        self._nodes = nodes or capture_nodes
+
+    def _slot(self) -> int:
+        n = len(self.marks) + len(self.counters)
+        if n >= SLOTS:
+            raise RuntimeError(f"Stamps: more than {SLOTS} marks and "
+                               "counts in one frame")
+        return n
+
+    def stage(self, name: str) -> None:
+        slot = self._slot()
+        self._mark(self.buf, slot)
+        self.marks.append((name, slot, self._nodes(self.buf.device)))
+
+    def count(self, name: str, x: torch.Tensor) -> None:
+        slot = self._slot()
+        torch.sum(x.reshape(-1), 0, dtype=torch.int64, out=self.buf[slot])
+        self.counters.append((name, slot))
+
+    def end(self) -> None:
+        """The mark after the frame's last stage."""
+        self.stage(END)
+
+    @property
+    def stages(self) -> list:
+        """Stage names in capture order."""
+        return [n for n, _, _ in self.marks[:-1]]
+
+    @property
+    def nodes(self) -> int:
+        """The graph's nodes at the end mark: the frame's."""
+        return self.marks[-1][2]
+
+    def stage_nodes(self) -> dict:
+        """Stage name -> graph nodes from its mark to the next."""
+        out = defaultdict(int)
+        for (n, _, a), (_, _, b) in zip(self.marks, self.marks[1:]):
+            out[n] += b - a
+        return dict(out)
+
+    def read(self) -> dict:
+        """One copy of the buffer to the host (it waits for the device):
+        ``stages`` [(name, start, end)] on the device's clock, in capture
+        order, ``counters`` (name -> summed int), ``nodes`` and
+        ``stage_nodes``."""
+        host = self.buf.tolist()
+        counters = defaultdict(int)
+        for n, slot in self.counters:
+            counters[n] += host[slot]
+        return {"stages": [(n, host[a], host[b]) for (n, a, _), (_, b, _)
+                           in zip(self.marks, self.marks[1:])],
+                "counters": dict(counters), "nodes": self.nodes,
+                "stage_nodes": self.stage_nodes()}
+
+
+def card_mark(buf: torch.Tensor, slot: int) -> None:
+    """Enqueue ``nrslam_trace_mark``: the device's timer into ``buf[slot]``
+    (an int64 CUDA buffer) on the current stream."""
+    from nrslam_tpu_torch import kernels
+
+    kernels.check_launch("nrslam_trace_mark", kernels.library()
+                         .nrslam_trace_mark(buf.data_ptr() + 8 * slot,
+                                            kernels.stream_of(buf.device)))
+
+
+def capture_nodes(device) -> int:
+    """Nodes of the graph the current stream of ``device`` is capturing
+    (``cudaStreamGetCaptureInfo``, ``cudaGraphGetNodes``); -1 where it
+    captures none."""
+    from nrslam_tpu_torch import kernels
+
+    n = ctypes.c_long(0)
+    kernels.check_launch("nrslam_capture_nodes", kernels.library()
+                         .nrslam_capture_nodes(kernels.stream_of(device),
+                                               ctypes.addressof(n)))
+    return n.value
+
+
+def calibrate(device=None, rounds: int = 8) -> dict:
+    """The device's ``%globaltimer`` against ``time.perf_counter_ns``:
+    ``rounds`` marks, each between two host readings with a synchronize
+    after it, the tightest kept. ``offset_ns``: device ns minus host ns at
+    the bracket's middle (a device stamp ``s`` is at ``s - offset_ns`` on
+    the host's clock, within half the bracket); ``bracket_ns``: its
+    width."""
+    _require_cuda("calibrate")
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    buf = torch.zeros(rounds, dtype=torch.int64, device=device)
+    torch.cuda.synchronize(device)
+    brackets = []
+    for i in range(rounds):
+        t0 = time.perf_counter_ns()
+        card_mark(buf, i)
+        torch.cuda.synchronize(device)
+        brackets.append((t0, time.perf_counter_ns()))
+    stamps = buf.tolist()
+    i = min(range(rounds), key=lambda k: brackets[k][1] - brackets[k][0])
+    t0, t1 = brackets[i]
+    return {"offset_ns": stamps[i] - (t0 + t1) // 2, "bracket_ns": t1 - t0}
 
 
 def _require_cuda(what: str):

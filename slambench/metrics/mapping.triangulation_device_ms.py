@@ -1,0 +1,10 @@
+"""mapping.triangulation_device_ms: device ms of the stage
+mapping.triangulation (non-keyframes only) in a replayed frame, from its
+stamp to the next stage's, the mean over the window's non-keyframes (the
+program's tracer; None without it)."""
+
+from slambench.metrics._program import stage_device_ms
+
+
+def read(rec):
+    return stage_device_ms(rec, "mapping.triangulation", ("nonkf",))
