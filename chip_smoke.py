@@ -5,7 +5,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 (``python3 chip_smoke.py --witness`` instead runs only the main path's
 System three ways, the card with the kernels, the card with the plain
 drivers, the CPU, and prints each one's accuracy and how far their
-trajectories drift apart; ``python3 chip_smoke.py --wrappers TREE`` only
+trajectories drift apart; ``python3 chip_smoke.py --klt`` only builds the
+kernels and runs phase 3 [klt]; ``python3 chip_smoke.py --wrappers TREE`` only
 times the pose-only, joint and BA wrappers of the package in TREE, e.g.
 another commit's ``git archive``, and its partitioned joint and BA routes
 by phase: measurements, not checks.)
@@ -34,6 +35,14 @@ prints its seconds):
      pose-only kernel also: one wrapper call runs exactly one device kernel
      (torch.profiler), a 5-round schedule held to plain, and the spread of
      3 seeded permutations of its points ([spread], a measurement);
+     [klt]: the KLT kernel (csrc/klt.cu) against the plain path on the
+     card at the main path's three calls (data association at
+     320x240/P=384 over 5 levels, point reuse's 2 levels through
+     level_slice, the init's F=4,000 over 5 levels on an init pair), under
+     the CPU tests' tolerances (positions within 1e-3 px, statuses equal on
+     >= 99% of slots), two launches bit-identical, the kernel alone, the
+     wrapper and the plain path timed beside the bound of the work it
+     reports; ptxas reports no spills in it;
   3a. the sharded routes (parallel/solve_shard.py on CUDA tensors: the
      phase kernels of csrc/pose_only_shard.cu and
      csrc/pose_deformation_shard.cu, whose partial sums a process group
@@ -257,6 +266,12 @@ SAME_DEVICE_FLOW_TOL = 2e-4
 # of the Jacobi blocks or lambda0 x10 moves max(|dq|, |dt|, |dL|) by
 # >= 1.78e-3 (CPU, float32), and no CG solve converges early in 16 trips.
 SAME_DEVICE_BA_TOL = 3e-5
+# KLT kernel vs the plain path on the same card: the CPU tests' tolerances
+# (tests/test_torch_klt.py): positions within 1e-3 px where both give the
+# same usable status, statuses equal on >= 99% of slots (a point at a gate
+# may flip on a last-bit difference of a window sum).
+KLT_POS_TOL = 1e-3
+KLT_STATUS_AGREE = 0.99
 
 
 def card_line() -> str:
@@ -949,6 +964,121 @@ def ba_shard_kernel_phase(dev, whole: dict):
     return rec
 
 
+def klt_calls(dev):
+    """The three klt.track calls of the main path, as (label, pyramid,
+    refs, seeds, statuses, config, min_ssim): data association at
+    320x240/P=384 over 5 levels and point reuse's 2 levels (refs through
+    level_slice) on the steady bench state, and the init's F=4,000 over 5
+    levels on a pair of the init scene (reset on frame 0, frame 3 tracked)."""
+    from nrslam_tpu_torch import profile_scale, profile_stages
+    from nrslam_tpu_torch.datasets import synthetic
+    from nrslam_tpu_torch.ops import klt
+    from nrslam_tpu_torch.slam import initializer
+    from nrslam_tpu_torch.slam.state import Config
+
+    pb = profile_stages.steady_state(384, 240, 320, 128, device=dev)
+    s, cfg = pb.state, pb.config
+    kc = cfg.klt_config
+    scene = synthetic.SceneConfig(**profile_scale.init_scene(240, 320))
+    seq = synthetic.SyntheticSequence(scene, n_frames=4, device=dev)
+    kcfg = Config(rad_per_pixel=1.0 / scene.fx).klt_config
+    icfg = initializer.InitializerConfig(max_features=4000,
+                                         rad_per_pixel=1.0 / scene.fx)
+    mask = torch.ones((240, 320), dtype=torch.bool, device=dev)
+    st = initializer.reset(klt.build_pyramid(seq.get_frame(0)[0], kcfg),
+                           mask, 0, kcfg, icfg)
+    return [
+        ("P=384 5 levels", pb.pyramid, s.refs, s.keypoints, s.status, kc,
+         cfg.klt_min_ssim),
+        ("P=384 2 levels", pb.pyramid[:2], s.refs.level_slice(2),
+         s.keypoints, s.status, kc._replace(max_level=1),
+         cfg.klt_min_ssim_reuse),
+        ("F=4000 5 levels", klt.build_pyramid(seq.get_frame(3)[0], kcfg),
+         st.refs, st.cur_keypoints, st.status, kcfg, icfg.klt_min_ssim)]
+
+
+# KLT float operations per LK iteration of one point (441 window slots:
+# image and gradient bilinear samples and the two sums, ~25; the gain /
+# bias residual, the gradients' sum and the five products, ~17) and per
+# SSIM gate (sample, centring, five sums, ~18 a slot).
+KLT_ITER_FLOPS = 42 * 441
+KLT_GATE_FLOPS = 18 * 441
+
+
+def klt_work(pyr, refs, seeds, statuses, iters, gated) -> tuple:
+    """(FLOPs, bytes) of one call from what it ran: the LK iterations and
+    gated points it reports; each level's image and gradient read once,
+    the reference windows and statistics of the levels it tracked, and a
+    point's seed, status and outputs."""
+    from nrslam_tpu_torch.ops import klt
+
+    usable = klt.is_usable(statuses)
+    n_bytes = 0
+    for level, (img, grad) in enumerate(pyr):
+        ip = torch.floor(refs.points / (1 << level) - 10.0)
+        h, w = img.shape
+        inside = ((ip[:, 0] >= -11) & (ip[:, 0] < w - 11)
+                  & (ip[:, 1] >= -11) & (ip[:, 1] < h - 11))
+        tracked = int((usable & inside & refs.valid[:, level]).sum())
+        n_bytes += nbytes(img, grad) + tracked * (441 * 12 + 9)
+    n_bytes += seeds.shape[0] * (8 + 4 + 8 + 4 + 4 + 8)
+    return iters * KLT_ITER_FLOPS + gated * KLT_GATE_FLOPS, n_bytes
+
+
+def klt_phase(dev):
+    """[klt]: the KLT kernel against the plain path on the same card at the
+    three calls of the main path (klt_calls), under the CPU tests'
+    tolerances; two launches bit-identical; the kernel alone, the wrapper
+    call and the plain path timed, with the work the call reports and its
+    bound. Returns the kernels' record of the data association's call."""
+    from nrslam_tpu_torch.ops import klt, klt_cuda
+
+    rec = None
+    for label, pyr, refs, seeds, status, kc, min_ssim in klt_calls(dev):
+        P, L = seeds.shape[0], len(pyr)
+        xp, sp = klt.track_plain(pyr, refs, seeds, status, kc, min_ssim)
+        prep = klt_cuda.prepare(pyr, refs, seeds, status, kc, min_ssim)
+        xk, sk, it = (t.clone() for t in klt_cuda.launch(prep))
+        check_deterministic(f"klt {label}", klt_cuda.launch, prep)
+        torch.cuda.synchronize()
+        same = sk == sp
+        agree = float(same.float().mean())
+        both = same & klt.is_usable(sp)
+        gaps = torch.linalg.norm(xk - xp, dim=-1)
+        gap = float(gaps[both].max()) if bool(both.any()) else 0.0
+        rest = same & ~klt.is_usable(sp) & torch.isfinite(xp).all(-1)
+        gap_rest = float(gaps[rest].max()) if bool(rest.any()) else 0.0
+        flips = torch.nonzero(~same).flatten().tolist()
+        iters, gated = int(it.sum()), int(klt.is_usable(sk).sum()
+                                         + (sk == klt.BAD_FEATURE).sum())
+        ms_a = cuda_ms(lambda: klt_cuda.launch(prep))
+        ms_w = cuda_ms(lambda: klt.track(pyr, refs, seeds, status, kc,
+                                         min_ssim))
+        ms_p = cuda_ms(lambda: klt.track_plain(pyr, refs, seeds, status, kc,
+                                               min_ssim), warmup=1, reps=5)
+        flops, n_b = klt_work(pyr, refs, seeds, status, iters, gated)
+        b_ms, by = bound(flops, n_b)
+        print(f"[klt] {label}: statuses agree on {agree:.4f} of {P} slots "
+              f"({len(flips)} differ: (slot, plain, kernel) "
+              f"{[(i, int(sp[i]), int(sk[i])) for i in flips[:6]]}); "
+              f"largest gap {gap:.3e} px over {int(both.sum())} tracked "
+              f"slots, {gap_rest:.3e} over the {int(rest.sum())} others; "
+              f"{iters} LK iterations of {P * L * kc.max_iters} "
+              f"(points x levels x {kc.max_iters}); kernel alone "
+              f"{ms_a:.4f} ms, wrapper {ms_w:.4f} ms, plain {ms_p:.4f} ms; "
+              f"bound {b_ms:.6f} ms ({by}: {flops / 1e6:.2f} MFLOP, "
+              f"{n_b / 1e6:.3f} MB), kernel/bound {ms_a / b_ms:.0f}")
+        if agree < KLT_STATUS_AGREE or gap > KLT_POS_TOL:
+            raise AssertionError(f"klt {label}: statuses agree on {agree}, "
+                                 f"largest gap {gap} px")
+        if rec is None:
+            rec = kernel_record(ms_a, ms_w, ms_p, flops, n_b,
+                                {"iterations": iters,
+                                 "of": P * L * kc.max_iters})
+            rec["err"] = gap
+    return rec
+
+
 def ba_kernel_phase(dev):
     """Kernel 3 vs the plain BA driver at the keyframe's shapes: the CPU
     tests' 1e-3 (tests/test_bundle_adjustment_pallas.py), then the
@@ -1213,6 +1343,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     CUDA-event ms per frame by kind, the graphs' build, the launch counts
     of each run."""
     from nrslam_tpu_torch import bench_problem
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
@@ -1265,7 +1396,8 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
         s, g, mask, cam, config, kf), s)
     launches = {"pose_only": pose_only_cuda.launches,
                 "pose_deformation": pdc.launches,
-                "bundle_adjustment": bac.launches}
+                "bundle_adjustment": bac.launches,
+                "klt": klt_cuda.launches}
     print(f"[scale] {W}x{H} P={P}: {n} frames in {dt:.3f} s = "
           f"{n / dt:.2f} frames/s, {1e3 * dt / n:.2f} ms/frame on {card}; "
           f"{check_map('eager', s, res)} "
@@ -1331,6 +1463,7 @@ def graph_phase(dev, card: str, n: int = 20):
     graph launch and no kernel launch on the host a frame (torch.profiler,
     which also reads the kernels of one replay and their device time)."""
     from nrslam_tpu_torch import bench_problem
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
@@ -1366,14 +1499,15 @@ def graph_phase(dev, card: str, n: int = 20):
 
     reset_launches()
     fg = frame_graph.FrameGraph(s0, frame(0), mask, cam, config)
-    counts = (pose_only_cuda.launches, pdc.launches, bac.launches)
+    counts = (pose_only_cuda.launches, pdc.launches, bac.launches,
+              klt_cuda.launches)
     print(f"[graph] built in {fg.build_s:.2f} s (captures "
           f"{fg.capture_s[False]:.2f} / {fg.capture_s[True]:.2f} s, "
           f"non-keyframe / keyframe), pools {fg.pool_bytes[False]} / "
           f"{fg.pool_bytes[True]} B, packed state {fg.buf.numel()} B; "
           f"launches recorded {fg.launches}; wrapper counts after the "
           f"build {counts}")
-    if counts != (0, 0, 0):
+    if counts != (0, 0, 0, 0):
         raise AssertionError("graph: the build changed the launch counts")
 
     s, out, ms_r, enq = s0, [], [], []
@@ -1645,6 +1779,7 @@ def run_system(dev, n: int = 60):
     pose-only solves."""
     from nrslam_tpu_torch.datasets import synthetic
     from nrslam_tpu_torch.eval import metrics
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import initializer, system
     from nrslam_tpu_torch.slam.state import Config
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
@@ -1702,7 +1837,8 @@ def run_system(dev, n: int = 60):
             torch.isfinite(sysm.state.positions).all()),
         "launches": {"pose_only": pose_only_cuda.launches,
                      "pose_deformation": pdc.launches,
-                     "bundle_adjustment": bac.launches},
+                     "bundle_adjustment": bac.launches,
+                     "klt": klt_cuda.launches},
         "refines": initializer.refines, "refine_inputs": refine_inputs,
         "replays": replays(sysm)}
 
@@ -1984,20 +2120,24 @@ class FrameTimer:
 
 
 def reset_launches():
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import initializer
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
     pose_only_cuda.launches = pdc.launches = bac.launches = 0
-    initializer.refines = 0
+    klt_cuda.launches = 0
+    initializer.refines = initializer.tracked_frames = 0
 
 
 def check_launches(label: str, steady: int, keyframes: int) -> dict:
     """The kernels' launch counts of the run since reset_launches(), held
     to what the path dictates: the pose-only kernel once per steady frame
     and 3 times per two-view refinement, the joint once per steady frame,
-    the BA once per keyframe."""
+    the BA once per keyframe, the KLT twice per steady frame (data
+    association and point reuse) and once per init frame tracked."""
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import initializer
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
@@ -2005,11 +2145,14 @@ def check_launches(label: str, steady: int, keyframes: int) -> dict:
 
     launches = {"pose_only": pose_only_cuda.launches,
                 "pose_deformation": pdc.launches,
-                "bundle_adjustment": bac.launches}
+                "bundle_adjustment": bac.launches,
+                "klt": klt_cuda.launches}
     want = {"pose_only": steady + 3 * initializer.refines,
-            "pose_deformation": steady, "bundle_adjustment": keyframes}
+            "pose_deformation": steady, "bundle_adjustment": keyframes,
+            "klt": 2 * steady + initializer.tracked_frames}
     print(f"[{label}] launches {launches} ({initializer.refines} two-view "
-          f"refinements, {steady} steady frames, {keyframes} keyframes)")
+          f"refinements, {initializer.tracked_frames} init frames tracked, "
+          f"{steady} steady frames, {keyframes} keyframes)")
     if launches != want or not all(launches.values()):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches
@@ -2502,6 +2645,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     """Every phase of the default run, in order; returns (the kernels'
     records, their launches on the paths that drive them)."""
     rec = phase("kernels", kernel_phase, dev)
+    rec["klt"] = phase("klt", klt_phase, dev)
     rec.update(phase("sharded kernels", shard_kernel_phase, dev, rec))
     rec["bundle_adjustment_shard"] = phase(
         "partitioned BA kernels", ba_shard_kernel_phase, dev, rec)
@@ -2528,9 +2672,10 @@ def run_phases(phase, dev, card: str, world, tmp: str):
 def main():
     args = sys.argv[1:]
     witness = args == ["--witness"]
+    klt_only = args == ["--klt"]
     wrappers = len(args) == 2 and args[0] == "--wrappers"
-    if args and not (witness or wrappers):
-        raise SystemExit("usage: python3 chip_smoke.py [--witness | "
+    if args and not (witness or klt_only or wrappers):
+        raise SystemExit("usage: python3 chip_smoke.py [--witness | --klt | "
                          "--wrappers TREE]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2571,6 +2716,7 @@ def main():
             for p in ("init", "lin", "step", "hv", "cg"):
                 check_no_spills(kernels.build_log.get(src, ""),
                                 f"{prefix}_{p}", 1)
+        check_no_spills(kernels.build_log.get("klt.cu", ""), "klt_kernel", 1)
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -2580,6 +2726,9 @@ def main():
 
     if witness:
         phase("system witness", system_witness, dev, card)
+        return
+    if klt_only:
+        print(json.dumps({"klt": phase("klt", klt_phase, dev)}))
         return
     if wrappers:
         phase("wrappers", time_wrappers, dev, card)
@@ -2611,6 +2760,8 @@ def main():
         "bundle_adjustment_shard": (
             "nrslam_tpu_torch/csrc/bundle_adjustment_shard.cu",
             "nrslam_tpu/solver/bundle_adjustment_pallas.py:66"),
+        "klt": ("nrslam_tpu_torch/csrc/klt.cu",
+                "none: plain ops (nrslam_tpu/ops/klt.py::track)"),
     }
     kernels_json = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

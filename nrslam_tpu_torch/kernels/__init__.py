@@ -61,6 +61,8 @@ _SIGNATURES = {
     "nrslam_ba_shard_layout": (_I, [_I] * 5 + [_P]),
     "nrslam_ba_shard": (_I, [_I] * 4 + [_P, _I] + [_P] * 10 + [_I] * 7
                         + [_P]),
+    "nrslam_klt": (_I, [_P, _P]),
+    "nrslam_klt_layout": (_I, [_P]),
     "nrslam_trace_mark": (_I, [_P, _P]),
     "nrslam_capture_nodes": (_I, [_P, _P]),
 }

@@ -7,9 +7,14 @@ same border clamping as the JAX package's ``_extract_patches``; the
 per-point tile of the JAX tracker is reproduced by clamping each iteration's
 window offset to the 48-pixel tile anchored at the level start.
 
-The per-level iteration runs a fixed ``max_iters`` trips: updates are masked
-by the per-point ``done`` flag exactly as in the JAX while-loop, so the
-result is identical and no host synchronisation is needed for early exit.
+``track`` dispatches on the device of its inputs: CUDA tensors go to the
+hand-written kernel (``klt_cuda``, csrc/klt.cu: one launch a call, which
+raises if it cannot build or launch, and counts the LK iterations it ran as
+``profiler.device_count("klt.iterations")``); CPU tensors run
+``track_plain``, the kernel's oracle. There the per-level iteration runs a
+fixed ``max_iters`` trips: updates are masked by the per-point ``done``
+flag exactly as in the JAX while-loop, so the result is identical and no
+host synchronisation is needed for early exit.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from nrslam_tpu_torch.ops import image as image_ops
+from nrslam_tpu_torch.utils import profiler
 
 # LandmarkStatus codes (landmark_status.h:23-30).
 TRACKED_WITH_3D = 0
@@ -205,6 +211,19 @@ def track(pyramid, refs: KLTRefs, seeds, statuses, config: KLTConfig,
           min_ssim: float, use_initial_flow: bool = True):
     """Track all points into a new pyramid. Returns (points [P, 2],
     statuses [P])."""
+    if seeds.device.type == "cpu":
+        return track_plain(pyramid, refs, seeds, statuses, config, min_ssim,
+                           use_initial_flow)
+    from nrslam_tpu_torch.ops import klt_cuda
+    pts, statuses, iters = klt_cuda.track(pyramid, refs, seeds, statuses,
+                                          config, min_ssim, use_initial_flow)
+    profiler.device_count("klt.iterations", iters)
+    return pts, statuses
+
+
+def track_plain(pyramid, refs: KLTRefs, seeds, statuses, config: KLTConfig,
+                min_ssim: float, use_initial_flow: bool = True):
+    """Plain PyTorch tracking (the CPU path and the kernel's oracle)."""
     win = config.win
     max_level = len(pyramid) - 1
     area = win * win

@@ -55,16 +55,19 @@ from nrslam_tpu_torch.utils import profiler, tree
 # The counted module globals a capture sets, by owner: counts (ints added
 # to on every replay), counts by phase (dicts, mutated in place), handles
 # of the last launch's device header, and the owners of a ``traffic``
-# (``sharding.Traffic``: payloads, bytes, largest payload).
+# (``sharding.Traffic``: payloads, bytes, largest payload). An owner has
+# the counts of its routes (``klt_cuda`` no partitioned one).
 _INTS = ("launches", "shard_calls")
 _DICTS = ("shard_launches",)
 _HANDLES = {"pose_only_cuda": ("last_lm_steps", "shard_last_steps"),
             "pose_deformation_cuda": ("last_work", "shard_last_work"),
-            "bundle_adjustment_cuda": ("last_work", "shard_last_work")}
+            "bundle_adjustment_cuda": ("last_work", "shard_last_work"),
+            "klt_cuda": ("last_iterations",)}
 _TRAFFIC = ("sharding", "tracking_shard", "solve_shard")
 
 
 def _owners():
+    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.parallel import sharding, solve_shard, tracking_shard
     from nrslam_tpu_torch.solver import (bundle_adjustment_cuda,
                                          pose_deformation_cuda,
@@ -72,6 +75,7 @@ def _owners():
     return {"pose_only_cuda": pose_only_cuda,
             "pose_deformation_cuda": pose_deformation_cuda,
             "bundle_adjustment_cuda": bundle_adjustment_cuda,
+            "klt_cuda": klt_cuda,
             "sharding": sharding, "tracking_shard": tracking_shard,
             "solve_shard": solve_shard}
 
@@ -84,9 +88,11 @@ def wrapper_globals() -> dict:
     out = {}
     for m, handles in _HANDLES.items():
         for a in _INTS + handles:
-            out[(m, a)] = getattr(mods[m], a)
+            if hasattr(mods[m], a):
+                out[(m, a)] = getattr(mods[m], a)
         for a in _DICTS:
-            out[(m, a)] = dict(getattr(mods[m], a))
+            if hasattr(mods[m], a):
+                out[(m, a)] = dict(getattr(mods[m], a))
     for m in _TRAFFIC:
         out[(m, "traffic")] = mods[m].traffic.snapshot()
     return out

@@ -42,8 +42,10 @@ from nrslam_tpu_torch.ops import klt, shi_tomasi
 from nrslam_tpu_torch.utils import profiler
 
 # Two-view refinements run (each is three pose-only solves; on the card
-# three launches of the pose-only kernel).
+# three launches of the pose-only kernel), and frames tracked against the
+# reference (on the card one launch of the KLT kernel each).
 refines = 0
+tracked_frames = 0
 
 
 class InitializerConfig(NamedTuple):
@@ -115,6 +117,8 @@ def track_frame(state: InitializerState, pyramid, klt_config: klt.KLTConfig,
                 config: InitializerConfig):
     """KLT data association against the reference image. Returns
     (state, n_matches)."""
+    global tracked_frames
+    tracked_frames += 1
     pts, status = klt.track(pyramid, state.refs, state.cur_keypoints,
                             state.status, klt_config,
                             min_ssim=config.klt_min_ssim)
