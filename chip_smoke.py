@@ -6,7 +6,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 System three ways, the card with the kernels, the card with the plain
 drivers, the CPU, and prints each one's accuracy and how far their
 trajectories drift apart; ``python3 chip_smoke.py --klt`` only builds the
-kernels and runs phase 3 [klt]; ``python3 chip_smoke.py --wrappers TREE`` only
+kernels and runs phase 3 [klt], ``--tri`` only the build and phase 3
+[tri]; ``python3 chip_smoke.py --wrappers TREE`` only
 times the pose-only, joint and BA wrappers of the package in TREE, e.g.
 another commit's ``git archive``, and its partitioned joint and BA routes
 by phase: measurements, not checks.)
@@ -43,6 +44,18 @@ prints its seconds):
      >= 99% of slots), two launches bit-identical, the kernel alone, the
      wrapper and the plain path timed beside the bound of the work it
      reports; ptxas reports no spills in it;
+     [tri]: the deformable triangulation kernel
+     (csrc/deformable_triangulation.cu) against the plain path on the card
+     at every non-keyframe call of the relost cell's sequence (slambench's
+     kb8-320-p384.relost from stream frame 0, 120 frames: the calls'
+     arguments recorded by an eager frame_step from each state the System
+     reaches): ok equal on every candidate, landmarks within TRI_POS_TOL
+     where ok, beside the plain path's own float32 / float64 spread; two
+     launches bit-identical; the kernel alone, the wrapper and the plain
+     path timed beside the bound of the work, the stage's device ms in 40
+     more frames of replays (stamps, under a tracer) and one launch a
+     non-keyframe replay, none a keyframe; ptxas reports no spills in
+     either instantiation (pinhole, KB8);
   3a. the sharded routes (parallel/solve_shard.py on CUDA tensors: the
      phase kernels of csrc/pose_only_shard.cu and
      csrc/pose_deformation_shard.cu, whose partial sums a process group
@@ -1079,6 +1092,185 @@ def klt_phase(dev):
     return rec
 
 
+# The relost cell's sequence (slambench, kb8-320-p384.relost from stream
+# frame 0): one blackout cycle, the first init and the first stretch's ~90
+# non-keyframes.
+TRI_CELL = "kb8-320-p384.relost"
+TRI_FRAMES = 120
+# Triangulation kernel vs the plain path on the same card, both float32:
+# ok equal on every candidate, and each landmark where both are ok within
+# TRI_POS_TOL of the plain one, relative to max(1, |X|) by component. The
+# tolerance is about 4x the plain path's own float32 rounding at these
+# calls: on the same inputs its float32 landmarks lie up to 6.921e-04 from
+# its float64 ones on an NVIDIA H100 (the kernel's first reading against
+# plain float32: 6.394e-04), float32 rounding carried through 10 LM steps.
+TRI_POS_TOL = 3e-3
+
+
+def tri_calls(dev, n_frames: int = TRI_FRAMES):
+    """The deformable triangulation's calls at the non-keyframes of the
+    relost cell's sequence, from the states the System reaches there:
+    ``System.track_image`` steps the stream (replayed on the card); before
+    each non-keyframe an eager ``frame_step`` from the same state records
+    the arguments of its ``deformable_triangulate`` call (the replay is bit
+    for bit the eager frame, [graph]). Returns (the System, the stream and
+    its next frame, [(frame, cam, inputs, poses, rad_per_pixel)])."""
+    from slambench import check
+    from slambench import run as bench
+    from slambench import scene
+    from nrslam_tpu_torch.slam import system
+    from nrslam_tpu_torch.solver import deformable_triangulation as dt
+    from nrslam_tpu_torch.utils import tree
+
+    _, _, cfg, mix, _ = bench.load_cell(TRI_CELL)
+    sysm = bench.program_setup(cfg, dev)
+    c = cfg["camera"]
+    ref_cam = check.reference_setup(cfg, dev)[0]
+    stream = scene.Stream(scene.render_loop(ref_cam, c["height"], c["width"],
+                                            mix), mix, 0)
+    calls, real = [], dt.deformable_triangulate
+
+    def recording(cam, inputs, Tcw, rad_per_pixel, *args, **kw):
+        calls.append((f, cam, tree.tree_map(torch.clone, inputs),
+                      tree.tree_map(torch.clone, Tcw), rad_per_pixel))
+        return real(cam, inputs, Tcw, rad_per_pixel, *args, **kw)
+
+    for f in range(n_frames):
+        img = stream.frame(f)
+        if sysm.status == system.TRACKING \
+                and sysm._frames_since_kf < sysm.config.keyframe_every:
+            gray = sysm._preprocess(img)
+            dt.deformable_triangulate = recording
+            try:
+                system.frame_step(sysm.state, gray, sysm._mask(gray),
+                                  sysm.cam, sysm.config, False)
+            finally:
+                dt.deformable_triangulate = real
+        sysm.track_image(img)
+    return sysm, stream, n_frames, calls
+
+
+# Triangulation float operations, from a call's sizes and schedule: per
+# spring term (frame pair x neighbour) and assembly ~30 (flow and residual,
+# chi2, Huber weight and cost, the weighted sums); per frame and assembly
+# ~150 + 3 T (transform, KB8 projection and Jacobian, Jr, B, g, the pair
+# shares and diag_L); per frame and PCG trip ~65 + 6 T (W p, B p, the
+# preconditioner, two dot products, the vector updates).
+def tri_work(C: int, T: int, NB: int, n_iters: int = 10,
+             cg_iters: int = 12) -> tuple:
+    """(FLOPs, bytes) of one call: n_iters + 2 assemblies and n_iters x
+    cg_iters PCG trips per candidate; each candidate's inputs read once
+    (observations, masks, neighbour tracks, the poses) and its outputs
+    written once."""
+    assemblies = n_iters + 2
+    per_cand = (assemblies * (T * (T - 1) // 2 * NB * 30 + T * (150 + 3 * T))
+                + n_iters * cg_iters * T * (65 + 6 * T))
+    n_bytes = C * (T * 8 + T + NB * T * 12 + NB * T + 1 + T * 28 + 12 + 1
+                   + 4)
+    return C * per_cand, n_bytes
+
+
+def tri_phase(dev):
+    """[tri]: the triangulation kernel against the plain path on the same
+    card at the relost sequence's non-keyframe calls (tri_calls): ok equal
+    on every candidate, landmarks within TRI_POS_TOL where ok, beside the
+    plain path's own float32 / float64 spread; two launches bit-identical;
+    the kernel alone, the wrapper and the plain path timed at the call with
+    the most candidates ok, beside the bound of the work; the stage's
+    device ms inside replayed non-keyframes (stamps, under a tracer) and
+    the launches: one a non-keyframe replay, none a keyframe. Returns the
+    kernels' record."""
+    from nrslam_tpu_torch.geometry import cameras, se3
+    from nrslam_tpu_torch.solver import deformable_triangulation as dt
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
+    from nrslam_tpu_torch.utils import profiler, tree
+
+    sysm, stream, f, calls = tri_calls(dev)
+    if len(calls) < 40:
+        raise AssertionError(f"tri: {len(calls)} non-keyframe calls in "
+                             f"{TRI_FRAMES} frames")
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs()
+                / torch.clamp(b.double().abs(), min=1.0)).amax(-1)
+
+    gap = spread = 0.0
+    n_ok = accepted = 0
+    best = None
+    for frame, cam, inputs, Tcw, rad in calls:
+        prep = dtc.prepare(cam, inputs, Tcw, rad)
+        Xk, okk, acc = (t.clone() for t in dtc.launch(prep))
+        check_deterministic(f"tri frame {frame}", dtc.launch, prep)
+        Xp, okp = dt.deformable_triangulate_plain(cam, inputs, Tcw, rad)
+        X64, ok64 = dt.deformable_triangulate_plain(
+            cameras.Camera(cam.params.double(), cam.kind),
+            tree.tree_map(lambda x: x.double() if x.is_floating_point()
+                          else x, inputs),
+            se3.SE3(Tcw.q.double(), Tcw.t.double()), rad)
+        if not torch.equal(okk, okp):
+            diff = torch.nonzero(okk != okp).flatten().tolist()
+            raise AssertionError(f"tri frame {frame}: ok differs from plain "
+                                 f"at candidates {diff}")
+        both = okp & ok64
+        gap = max(gap, float(rel(Xk, Xp)[okp].max()) if bool(okp.any())
+                  else 0.0)
+        spread = max(spread, float(rel(Xp, X64)[both].max())
+                     if bool(both.any()) else 0.0)
+        n_ok += int(okp.sum())
+        accepted += int(acc.sum())
+        if best is None or int(okp.sum()) > best[0]:
+            best = (int(okp.sum()), frame, cam, inputs, Tcw, rad, prep)
+    torch.cuda.synchronize()
+    C, T, _ = best[3].obs.shape
+    NB = best[3].nbr_pos.shape[1]
+    print(f"[tri] {TRI_CELL}, frames 0-{TRI_FRAMES - 1}: {len(calls)} "
+          f"non-keyframe calls (C={C}, T={T}, NB={NB}), ok equal to plain "
+          f"on every candidate ({n_ok} ok); largest landmark gap where ok "
+          f"{gap:.3e} (relative, gate {TRI_POS_TOL}), plain float32 against "
+          f"float64 {spread:.3e}; LM steps accepted {accepted} of "
+          f"{len(calls) * C * 10}")
+    if gap > TRI_POS_TOL:
+        raise AssertionError(f"tri: landmark gap {gap} above {TRI_POS_TOL}")
+
+    _, frame, cam, inputs, Tcw, rad, prep = best
+    ms_a = cuda_ms(lambda: dtc.launch(prep))
+    ms_w = cuda_ms(lambda: dt.deformable_triangulate(cam, inputs, Tcw, rad))
+    ms_p = cuda_ms(lambda: dt.deformable_triangulate_plain(cam, inputs, Tcw,
+                                                           rad),
+                   warmup=1, reps=5)
+    flops, n_b = tri_work(C, T, NB)
+    b_ms, by = bound(flops, n_b)
+
+    # Inside the replays: the rest of the cycle under a tracer.
+    reset_launches()
+    stage, kinds = [], {"kf": 0, "nonkf": 0}
+    with profiler.tracing() as tracer:
+        for f2 in range(f, f + 40):
+            sysm.track_image(stream.frame(f2))
+        for r in tracer.frames():
+            if r["kind"] in kinds and "device" in r:
+                kinds[r["kind"]] += 1
+                stage += [(b - a) / 1e6 for n, a, b in r["device"]["stages"]
+                          if n == "mapping.triangulation"]
+    in_replay = statistics.median(stage)
+    print(f"[tri] frame {frame} ({best[0]} of {C} ok): kernel alone "
+          f"{ms_a:.4f} ms, wrapper {ms_w:.4f} ms, plain {ms_p:.4f} ms; "
+          f"mapping.triangulation stage in a replay {in_replay:.4f} ms "
+          f"(median of {len(stage)}); bound {b_ms:.6f} ms ({by}: "
+          f"{flops / 1e6:.2f} MFLOP, {n_b / 1e6:.3f} MB), kernel/bound "
+          f"{ms_a / b_ms:.0f}; launches {dtc.launches} in {kinds['nonkf']} "
+          f"non-keyframe and {kinds['kf']} keyframe replays")
+    if dtc.launches != kinds["nonkf"] or not kinds["kf"] \
+            or len(stage) != kinds["nonkf"]:
+        raise AssertionError(f"tri: {dtc.launches} launches, {kinds} "
+                             "replays")
+    rec = kernel_record(ms_a, ms_w, ms_p, flops, n_b,
+                        {"lm_accepted": accepted,
+                         "of": len(calls) * C * 10})
+    rec["err"] = gap
+    return rec
+
+
 def ba_kernel_phase(dev):
     """Kernel 3 vs the plain BA driver at the keyframe's shapes: the CPU
     tests' 1e-3 (tests/test_bundle_adjustment_pallas.py), then the
@@ -1346,6 +1538,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
@@ -1397,7 +1590,8 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     launches = {"pose_only": pose_only_cuda.launches,
                 "pose_deformation": pdc.launches,
                 "bundle_adjustment": bac.launches,
-                "klt": klt_cuda.launches}
+                "klt": klt_cuda.launches,
+                "deformable_triangulation": dtc.launches}
     print(f"[scale] {W}x{H} P={P}: {n} frames in {dt:.3f} s = "
           f"{n / dt:.2f} frames/s, {1e3 * dt / n:.2f} ms/frame on {card}; "
           f"{check_map('eager', s, res)} "
@@ -1466,6 +1660,7 @@ def graph_phase(dev, card: str, n: int = 20):
     from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
@@ -1500,14 +1695,14 @@ def graph_phase(dev, card: str, n: int = 20):
     reset_launches()
     fg = frame_graph.FrameGraph(s0, frame(0), mask, cam, config)
     counts = (pose_only_cuda.launches, pdc.launches, bac.launches,
-              klt_cuda.launches)
+              klt_cuda.launches, dtc.launches)
     print(f"[graph] built in {fg.build_s:.2f} s (captures "
           f"{fg.capture_s[False]:.2f} / {fg.capture_s[True]:.2f} s, "
           f"non-keyframe / keyframe), pools {fg.pool_bytes[False]} / "
           f"{fg.pool_bytes[True]} B, packed state {fg.buf.numel()} B; "
           f"launches recorded {fg.launches}; wrapper counts after the "
           f"build {counts}")
-    if counts != (0, 0, 0, 0):
+    if counts != (0, 0, 0, 0, 0):
         raise AssertionError("graph: the build changed the launch counts")
 
     s, out, ms_r, enq = s0, [], [], []
@@ -1783,6 +1978,7 @@ def run_system(dev, n: int = 60):
     from nrslam_tpu_torch.slam import initializer, system
     from nrslam_tpu_torch.slam.state import Config
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
     from nrslam_tpu_torch.utils import tree
@@ -1838,7 +2034,8 @@ def run_system(dev, n: int = 60):
         "launches": {"pose_only": pose_only_cuda.launches,
                      "pose_deformation": pdc.launches,
                      "bundle_adjustment": bac.launches,
-                     "klt": klt_cuda.launches},
+                     "klt": klt_cuda.launches,
+                     "deformable_triangulation": dtc.launches},
         "refines": initializer.refines, "refine_inputs": refine_inputs,
         "replays": replays(sysm)}
 
@@ -2123,11 +2320,12 @@ def reset_launches():
     from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import initializer
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
     pose_only_cuda.launches = pdc.launches = bac.launches = 0
-    klt_cuda.launches = 0
+    klt_cuda.launches = dtc.launches = 0
     initializer.refines = initializer.tracked_frames = 0
 
 
@@ -2136,20 +2334,24 @@ def check_launches(label: str, steady: int, keyframes: int) -> dict:
     to what the path dictates: the pose-only kernel once per steady frame
     and 3 times per two-view refinement, the joint once per steady frame,
     the BA once per keyframe, the KLT twice per steady frame (data
-    association and point reuse) and once per init frame tracked."""
+    association and point reuse) and once per init frame tracked, the
+    triangulation once per non-keyframe."""
     from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import initializer
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
     launches = {"pose_only": pose_only_cuda.launches,
                 "pose_deformation": pdc.launches,
                 "bundle_adjustment": bac.launches,
-                "klt": klt_cuda.launches}
+                "klt": klt_cuda.launches,
+                "deformable_triangulation": dtc.launches}
     want = {"pose_only": steady + 3 * initializer.refines,
             "pose_deformation": steady, "bundle_adjustment": keyframes,
-            "klt": 2 * steady + initializer.tracked_frames}
+            "klt": 2 * steady + initializer.tracked_frames,
+            "deformable_triangulation": steady - keyframes}
     print(f"[{label}] launches {launches} ({initializer.refines} two-view "
           f"refinements, {initializer.tracked_frames} init frames tracked, "
           f"{steady} steady frames, {keyframes} keyframes)")
@@ -2646,6 +2848,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     records, their launches on the paths that drive them)."""
     rec = phase("kernels", kernel_phase, dev)
     rec["klt"] = phase("klt", klt_phase, dev)
+    rec["deformable_triangulation"] = phase("tri", tri_phase, dev)
     rec.update(phase("sharded kernels", shard_kernel_phase, dev, rec))
     rec["bundle_adjustment_shard"] = phase(
         "partitioned BA kernels", ba_shard_kernel_phase, dev, rec)
@@ -2673,10 +2876,11 @@ def main():
     args = sys.argv[1:]
     witness = args == ["--witness"]
     klt_only = args == ["--klt"]
+    tri_only = args == ["--tri"]
     wrappers = len(args) == 2 and args[0] == "--wrappers"
-    if args and not (witness or klt_only or wrappers):
+    if args and not (witness or klt_only or tri_only or wrappers):
         raise SystemExit("usage: python3 chip_smoke.py [--witness | --klt | "
-                         "--wrappers TREE]")
+                         "--tri | --wrappers TREE]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     # cuBLAS deterministic too where [parallel]'s plain-driver process turns
@@ -2717,6 +2921,8 @@ def main():
                 check_no_spills(kernels.build_log.get(src, ""),
                                 f"{prefix}_{p}", 1)
         check_no_spills(kernels.build_log.get("klt.cu", ""), "klt_kernel", 1)
+        check_no_spills(kernels.build_log.get("deformable_triangulation.cu",
+                                              ""), "tri_kernel", 2)
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -2729,6 +2935,10 @@ def main():
         return
     if klt_only:
         print(json.dumps({"klt": phase("klt", klt_phase, dev)}))
+        return
+    if tri_only:
+        print(json.dumps({"deformable_triangulation": phase("tri", tri_phase,
+                                                            dev)}))
         return
     if wrappers:
         phase("wrappers", time_wrappers, dev, card)
@@ -2762,6 +2972,10 @@ def main():
             "nrslam_tpu/solver/bundle_adjustment_pallas.py:66"),
         "klt": ("nrslam_tpu_torch/csrc/klt.cu",
                 "none: plain ops (nrslam_tpu/ops/klt.py::track)"),
+        "deformable_triangulation": (
+            "nrslam_tpu_torch/csrc/deformable_triangulation.cu",
+            "none: plain ops (nrslam_tpu/solver/deformable_triangulation.py"
+            "::deformable_triangulate)"),
     }
     kernels_json = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

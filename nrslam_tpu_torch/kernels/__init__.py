@@ -63,6 +63,8 @@ _SIGNATURES = {
                         + [_P]),
     "nrslam_klt": (_I, [_P, _P]),
     "nrslam_klt_layout": (_I, [_P]),
+    "nrslam_deformable_triangulation": (_I, [_P, _P]),
+    "nrslam_deformable_triangulation_layout": (_I, [_P]),
     "nrslam_trace_mark": (_I, [_P, _P]),
     "nrslam_capture_nodes": (_I, [_P, _P]),
 }

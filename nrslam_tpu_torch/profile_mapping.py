@@ -10,7 +10,8 @@ selection and deformable-input assembly it starts with
 (``mapping.assemble_triangulation_inputs``, ``input_assembly``), and the
 batched deformable LM on those inputs with 0, 1, 5 and 10 LM iterations
 (``deformable_triangulation.deformable_triangulate(..., n_iters=)``,
-``deformable_lm_{n}it``; the frame runs 10). Each as
+one kernel launch a call on the card, ``deformable_lm_{n}it``; the frame
+runs 10). Each as
 ``profile_stages.measure`` gives it: ``chained_ms``, ``device_ms`` and
 ``kernels`` of one call. The card's name, power limit and SM clock come
 first. Needs a CUDA device.

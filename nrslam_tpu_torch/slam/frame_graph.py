@@ -56,13 +56,15 @@ from nrslam_tpu_torch.utils import profiler, tree
 # to on every replay), counts by phase (dicts, mutated in place), handles
 # of the last launch's device header, and the owners of a ``traffic``
 # (``sharding.Traffic``: payloads, bytes, largest payload). An owner has
-# the counts of its routes (``klt_cuda`` no partitioned one).
+# the counts of its routes (``klt_cuda`` and
+# ``deformable_triangulation_cuda`` no partitioned one).
 _INTS = ("launches", "shard_calls")
 _DICTS = ("shard_launches",)
 _HANDLES = {"pose_only_cuda": ("last_lm_steps", "shard_last_steps"),
             "pose_deformation_cuda": ("last_work", "shard_last_work"),
             "bundle_adjustment_cuda": ("last_work", "shard_last_work"),
-            "klt_cuda": ("last_iterations",)}
+            "klt_cuda": ("last_iterations",),
+            "deformable_triangulation_cuda": ("last_accepted",)}
 _TRAFFIC = ("sharding", "tracking_shard", "solve_shard")
 
 
@@ -70,12 +72,14 @@ def _owners():
     from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.parallel import sharding, solve_shard, tracking_shard
     from nrslam_tpu_torch.solver import (bundle_adjustment_cuda,
+                                         deformable_triangulation_cuda,
                                          pose_deformation_cuda,
                                          pose_only_cuda)
     return {"pose_only_cuda": pose_only_cuda,
             "pose_deformation_cuda": pose_deformation_cuda,
             "bundle_adjustment_cuda": bundle_adjustment_cuda,
             "klt_cuda": klt_cuda,
+            "deformable_triangulation_cuda": deformable_triangulation_cuda,
             "sharding": sharding, "tracking_shard": tracking_shard,
             "solve_shard": solve_shard}
 

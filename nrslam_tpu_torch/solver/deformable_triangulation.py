@@ -6,6 +6,13 @@ world-frame parameterisation and the structured Hessian
 Per candidate: rigid pre-gates, neighbour-depth seeds, 10 LM iterations
 each solved by a 12-trip block-Jacobi PCG, then the damper/reprojection
 acceptance gates and the last-frame depth along the last ray.
+
+``deformable_triangulate`` dispatches on the device of its inputs: CUDA
+tensors go to the hand-written kernel (``deformable_triangulation_cuda``,
+csrc/deformable_triangulation.cu: one launch a call, which raises if it
+cannot build or launch, and counts the LM steps its candidates accepted as
+``profiler.device_count("triangulation.lm_accepted")``); CPU tensors run
+``deformable_triangulate_plain``, the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from nrslam_tpu_torch.geometry import cameras, se3, triangulation
 from nrslam_tpu_torch.solver import core
+from nrslam_tpu_torch.utils import profiler
 from nrslam_tpu_torch.utils.tree import tree_map
 
 INFO_REPROJECTION = 1.0 / (0.5 ** 2)
@@ -153,6 +161,21 @@ def deformable_triangulate(cam, inputs: TriangulationInputs, Tcw: se3.SE3,
                            n_iters: int = 10, cg_iters: int = 12):
     """Batched deformable triangulation. Tcw: [T] buffer poses.
     Returns (landmarks_world [C, 3], ok [C])."""
+    if inputs.obs.device.type == "cpu":
+        return deformable_triangulate_plain(cam, inputs, Tcw, rad_per_pixel,
+                                            min_track, n_iters, cg_iters)
+    from nrslam_tpu_torch.solver import deformable_triangulation_cuda
+    X, ok, accepted = deformable_triangulation_cuda.triangulate(
+        cam, inputs, Tcw, rad_per_pixel, min_track, n_iters, cg_iters)
+    profiler.device_count("triangulation.lm_accepted", accepted)
+    return X, ok
+
+
+def deformable_triangulate_plain(cam, inputs: TriangulationInputs,
+                                 Tcw: se3.SE3, rad_per_pixel: float,
+                                 min_track: int = 5, n_iters: int = 10,
+                                 cg_iters: int = 12):
+    """Plain PyTorch triangulation (the CPU path and the kernel's oracle)."""
     C, T, _ = inputs.obs.shape
     dev = inputs.obs.device
 
