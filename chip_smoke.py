@@ -411,9 +411,10 @@ def check_pose_only(label, cam, T0, X, obs, valid, rounds=(10, 10, 10)):
     plain driver's pose)."""
     from nrslam_tpu_torch.solver import pose_only
     from nrslam_tpu_torch.solver import pose_only_cuda as poc
+    from nrslam_tpu_torch.utils import profiler
 
     T_k = poc.camera_pose_optimization_cuda(cam, T0, X, obs, valid, rounds)
-    steps = int(poc.last_lm_steps.item())
+    steps = int(profiler.kept("pose_only.last_lm_steps").item())
     T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs, valid,
                                                    rounds)
     dq, dt = quat_err(T_k.q, T_p.q), float(torch.linalg.norm(T_k.t - T_p.t))
@@ -517,9 +518,10 @@ def check_joint(label, cam, seed, X, obs, valid, cp):
     launch)."""
     from nrslam_tpu_torch.solver import pose_deformation as pd
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
+    from nrslam_tpu_torch.utils import profiler
 
     Tk, fk, ck = pdc.pose_deformation_cuda(cam, seed, X, obs, valid, cp, 1.0)
-    work = read_work(pdc.last_work)
+    work = read_work(profiler.kept("pose_deformation.last_work"))
     Tp, fp, cpl = pd.pose_deformation_plain(cam, seed, X, obs, valid, cp, 1.0)
     dq, dt = quat_err(Tk.q, Tp.q), float(torch.linalg.norm(Tk.t - Tp.t))
     dflow = torch.linalg.norm(fk - fp, dim=-1)[valid]
@@ -554,10 +556,11 @@ def check_ba(label, cam, poses0, L0, prob, cg):
     launch)."""
     from nrslam_tpu_torch.solver import bundle_adjustment as ba
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.utils import profiler
 
     K = L0.shape[0]
     pk, Lk = bac.local_deformable_ba_cuda(cam, poses0, L0, prob, cg_iters=cg)
-    work = read_work(bac.last_work)
+    work = read_work(profiler.kept("bundle_adjustment.last_work"))
     pp, Lp = ba.local_deformable_ba_plain(cam, poses0, L0, prob, cg_iters=cg)
     live = prob.kf_valid
     seen = prob.obs_valid & live[:, None]
@@ -735,6 +738,7 @@ def shard_kernel_phase(dev, whole: dict):
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only
     from nrslam_tpu_torch.solver import pose_only_cuda as poc
+    from nrslam_tpu_torch.utils import profiler
 
     mesh = sharding.make_mesh(dev)
     assert mesh.group is None
@@ -750,9 +754,7 @@ def shard_kernel_phase(dev, whole: dict):
             return solve_shard.camera_pose_optimization_sharded(
                 mesh, cam, T0, X, obs, valid)
 
-        before = dict(poc.shard_launches)
-        T_s = pose_call()
-        one = {k: v - before[k] for k, v in poc.shard_launches.items()}
+        T_s, one = phase_launches(pose_call, "pose_only_shard")
         T_w = poc.camera_pose_optimization_cuda(cam, T0, X, obs, valid)
         T_p = pose_only.camera_pose_optimization_plain(cam, T0, X, obs,
                                                        valid)
@@ -787,11 +789,9 @@ def shard_kernel_phase(dev, whole: dict):
             return solve_shard.pose_deformation_sharded(
                 mesh, cam, seed, X, obs, valid, pairs, 1.0)
 
-        before = dict(pdc.shard_launches)
-        r_s = joint_call()
-        one_j = {k: v - before[k] for k, v in pdc.shard_launches.items()}
-        work = dict(zip(pdc.SHARD_WORK_FIELDS,
-                        pdc.shard_last_work.int().tolist()))
+        r_s, one_j = phase_launches(joint_call, "pose_deformation_shard")
+        work = dict(zip(pdc.SHARD_WORK_FIELDS, profiler.kept(
+            "pose_deformation_shard.last_work").int().tolist()))
         r_2 = joint_call()
         same = (torch.equal(r_s.flows, r_2.flows)
                 and torch.equal(r_s.Tcw.q, r_2.Tcw.q)
@@ -842,7 +842,7 @@ def shard_kernel_phase(dev, whole: dict):
             cam, seed, X, obs, valid, cp, 1.0))
         p_po = whole["pose_only"]["plain_ms"]
         p_pd = whole["pose_deformation"]["plain_ms"]
-        steps = int(poc.shard_last_steps.item())
+        steps = int(profiler.kept("pose_only_shard.last_lm_steps").item())
         flops = pose_only_flops(steps, int(valid.sum()))
         n_b = nbytes(cam.params, T0.q, T0.t, X, obs, valid) + 7 * 4
         rec["pose_only_shard"] = kernel_record(k_po, ms_po, p_po, flops, n_b,
@@ -893,6 +893,7 @@ def ba_shard_kernel_phase(dev, whole: dict):
     from nrslam_tpu_torch.slam.state import Config
     from nrslam_tpu_torch.solver import bundle_adjustment as ba
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
+    from nrslam_tpu_torch.utils import profiler
 
     mesh = sharding.make_mesh(dev)
     assert mesh.group is None
@@ -911,11 +912,10 @@ def ba_shard_kernel_phase(dev, whole: dict):
             return ba_points.local_deformable_ba_sharded(
                 mesh, cam, poses0, L0, prob, 5, cg)
 
-        before = dict(bac.shard_launches)
-        p_s, L_s = call()
-        one = {k: v - before[k] for k, v in bac.shard_launches.items()}
+        (p_s, L_s), one = phase_launches(call, "bundle_adjustment_shard")
         work = dict(zip(("lm_steps", "cg_trips", "linearizations"),
-                        bac.shard_last_work.int().tolist()))
+                        profiler.kept("bundle_adjustment_shard.last_work")
+                        .int().tolist()))
         p_2, L_2 = call()
         same = (torch.equal(L_s, L_2) and torch.equal(p_s.q, p_2.q)
                 and torch.equal(p_s.t, p_2.t))
@@ -1253,16 +1253,17 @@ def tri_phase(dev):
                 stage += [(b - a) / 1e6 for n, a, b in r["device"]["stages"]
                           if n == "mapping.triangulation"]
     in_replay = statistics.median(stage)
+    n_tri = launch_counts()["deformable_triangulation"]
     print(f"[tri] frame {frame} ({best[0]} of {C} ok): kernel alone "
           f"{ms_a:.4f} ms, wrapper {ms_w:.4f} ms, plain {ms_p:.4f} ms; "
           f"mapping.triangulation stage in a replay {in_replay:.4f} ms "
           f"(median of {len(stage)}); bound {b_ms:.6f} ms ({by}: "
           f"{flops / 1e6:.2f} MFLOP, {n_b / 1e6:.3f} MB), kernel/bound "
-          f"{ms_a / b_ms:.0f}; launches {dtc.launches} in {kinds['nonkf']} "
+          f"{ms_a / b_ms:.0f}; launches {n_tri} in {kinds['nonkf']} "
           f"non-keyframe and {kinds['kf']} keyframe replays")
-    if dtc.launches != kinds["nonkf"] or not kinds["kf"] \
+    if n_tri != kinds["nonkf"] or not kinds["kf"] \
             or len(stage) != kinds["nonkf"]:
-        raise AssertionError(f"tri: {dtc.launches} launches, {kinds} "
+        raise AssertionError(f"tri: {n_tri} launches, {kinds} "
                              "replays")
     rec = kernel_record(ms_a, ms_w, ms_p, flops, n_b,
                         {"lm_accepted": accepted,
@@ -1535,12 +1536,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     CUDA-event ms per frame by kind, the graphs' build, the launch counts
     of each run."""
     from nrslam_tpu_torch import bench_problem
-    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only_cuda
 
     state, frames, mask, cam, config = bench_problem.build_bench_problem(
         P, H, W, new_kp, device=dev)
@@ -1587,11 +1583,7 @@ def slice_at_scale(dev, card: str, P: int, H: int, W: int, new_kp: int):
     reset_launches()
     s, res, dt, ms_e = timed(lambda s, g, kf: system.frame_step(
         s, g, mask, cam, config, kf), s)
-    launches = {"pose_only": pose_only_cuda.launches,
-                "pose_deformation": pdc.launches,
-                "bundle_adjustment": bac.launches,
-                "klt": klt_cuda.launches,
-                "deformable_triangulation": dtc.launches}
+    launches = launch_counts()
     print(f"[scale] {W}x{H} P={P}: {n} frames in {dt:.3f} s = "
           f"{n / dt:.2f} frames/s, {1e3 * dt / n:.2f} ms/frame on {card}; "
           f"{check_map('eager', s, res)} "
@@ -1657,12 +1649,7 @@ def graph_phase(dev, card: str, n: int = 20):
     graph launch and no kernel launch on the host a frame (torch.profiler,
     which also reads the kernels of one replay and their device time)."""
     from nrslam_tpu_torch import bench_problem
-    from nrslam_tpu_torch.ops import klt_cuda
     from nrslam_tpu_torch.slam import frame_graph, system
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only_cuda
 
     s0, frames, mask, cam, config = bench_problem.build_bench_problem(
         768, 480, 640, 256, device=dev)
@@ -1694,13 +1681,13 @@ def graph_phase(dev, card: str, n: int = 20):
 
     reset_launches()
     fg = frame_graph.FrameGraph(s0, frame(0), mask, cam, config)
-    counts = (pose_only_cuda.launches, pdc.launches, bac.launches,
-              klt_cuda.launches, dtc.launches)
+    counts = tuple(launch_counts().values())
     print(f"[graph] built in {fg.build_s:.2f} s (captures "
           f"{fg.capture_s[False]:.2f} / {fg.capture_s[True]:.2f} s, "
           f"non-keyframe / keyframe), pools {fg.pool_bytes[False]} / "
           f"{fg.pool_bytes[True]} B, packed state {fg.buf.numel()} B; "
-          f"launches recorded {fg.launches}; wrapper counts after the "
+          f"tallies recorded {[fg.recorded[kf].counts for kf in (False, True)]}"
+          f"; wrapper counts after the "
           f"build {counts}")
     if counts != (0, 0, 0, 0, 0):
         raise AssertionError("graph: the build changed the launch counts")
@@ -1835,15 +1822,6 @@ def stamps_check(fg, state, gray, mask, cam, config):
           f"bracket {clock['bracket_ns'] / 1e3:.1f} us")
 
 
-def counts_and_handles():
-    """The wrappers' launch counts (values) and last-launch handles (the
-    objects), as frame_graph.wrapper_globals names them."""
-    from nrslam_tpu_torch.slam import frame_graph
-
-    return {k: (id(v) if frame_graph.is_handle(k) else v)
-            for k, v in frame_graph.wrapper_globals().items()}
-
-
 # [stages]: calls a stage makes in the tools' checks (timings of the shape
 # of each figure, not the figures the tools report with their defaults).
 STAGES_K = 2
@@ -1870,7 +1848,7 @@ def stages_phase(dev, card: str):
     of STAGES_PROFILED also the device ms and kernels of one call under
     torch.profiler (profile_stages.measure), read finite and > 0, and each
     device ms is <= 1.05 x the stage's chained ms; the captures and replays
-    leave the wrappers' launch counts and handles as they were. Few calls
+    add nothing to the host tally (profiler.record). Few calls
     a stage: a check of the tools, whose figures come from their own
     runs."""
     from nrslam_tpu_torch import profile_device, profile_stages
@@ -1887,10 +1865,15 @@ def stages_phase(dev, card: str):
     chains, moved = {}, []
     for key in ("full_frame_nokf", "pose_only"):
         step, carry = steps[key]
-        before = counts_and_handles()
-        chains[key] = chain = profiler.Chain(step, carry, STAGES_K, key)
-        chain.replay()
-        moved.append(counts_and_handles() != before)
+
+        def build():
+            chain = profiler.Chain(step, carry, STAGES_K, key)
+            chain.replay()
+            return chain
+
+        chain, rec = profiler.record(build)
+        chains[key] = chain
+        moved.append(any(rec))
         for _ in range(STAGES_K):
             carry = step(carry)
         bad = first_difference(chain.carry, carry)
@@ -1900,17 +1883,21 @@ def stages_phase(dev, card: str):
         if bad is not None:
             raise AssertionError(f"[stages] {key}: the captured chain "
                                  f"differs from the eager chain at {bad}")
-    before = counts_and_handles()
-    device = {key: chain.ms(reps=1) for key, chain in chains.items()}
-    device.update(profile_device.run(
-        pb, [k for k in STAGES_TIMED if k not in chains], k=STAGES_K,
-        reps=1))
-    moved.append(counts_and_handles() != before)
-    print(f"[stages] launch counts and handles moved by the captures and "
-          f"replays: {any(moved)}")
+
+    def time_all():
+        device = {key: chain.ms(reps=1) for key, chain in chains.items()}
+        device.update(profile_device.run(
+            pb, [k for k in STAGES_TIMED if k not in chains], k=STAGES_K,
+            reps=1))
+        return device
+
+    device, rec = profiler.record(time_all)
+    moved.append(any(rec))
+    print(f"[stages] host tally moved by the captures and replays: "
+          f"{any(moved)}")
     if any(moved):
         raise AssertionError("[stages] the tools' captures or replays moved "
-                             "the wrappers' launch counts or handles")
+                             "the host tally")
     for key in STAGES_TIMED:
         st = stages.get(key, {})
         print(f"[stages] 320x240 P=384 on {card}: {key}: device_timeit "
@@ -1974,13 +1961,9 @@ def run_system(dev, n: int = 60):
     pose-only solves."""
     from nrslam_tpu_torch.datasets import synthetic
     from nrslam_tpu_torch.eval import metrics
-    from nrslam_tpu_torch.ops import klt_cuda
-    from nrslam_tpu_torch.slam import initializer, system
+    from nrslam_tpu_torch.slam import system
     from nrslam_tpu_torch.slam.state import Config
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only, pose_only_cuda
+    from nrslam_tpu_torch.solver import pose_only
     from nrslam_tpu_torch.utils import tree
 
     scene = synthetic.SceneConfig(height=480, width=640, deform_amp=0.02)
@@ -2031,12 +2014,9 @@ def run_system(dev, n: int = 60):
         "n_tracked": len(est), "n3d": int(out.get("n_tracked_3d", 0)),
         "finite": sysm.state is not None and bool(
             torch.isfinite(sysm.state.positions).all()),
-        "launches": {"pose_only": pose_only_cuda.launches,
-                     "pose_deformation": pdc.launches,
-                     "bundle_adjustment": bac.launches,
-                     "klt": klt_cuda.launches,
-                     "deformable_triangulation": dtc.launches},
-        "refines": initializer.refines, "refine_inputs": refine_inputs,
+        "launches": launch_counts(),
+        "refines": tallied_since_reset().get("initializer.refines", 0),
+        "refine_inputs": refine_inputs,
         "replays": replays(sysm)}
 
 
@@ -2316,17 +2296,44 @@ class FrameTimer:
                 " s in all")
 
 
-def reset_launches():
-    from nrslam_tpu_torch.ops import klt_cuda
-    from nrslam_tpu_torch.slam import initializer
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only_cuda
+# The kernels whose launches check_launches holds, by the prefix of their
+# host tally's ``<kernel>.launches``.
+KERNELS = ("pose_only", "pose_deformation", "bundle_adjustment", "klt",
+           "deformable_triangulation")
+# The host tally when reset_launches() last ran.
+_TALLY_AT_RESET = {}
 
-    pose_only_cuda.launches = pdc.launches = bac.launches = 0
-    klt_cuda.launches = dtc.launches = 0
-    initializer.refines = initializer.tracked_frames = 0
+
+def reset_launches():
+    """Count launch_counts() and tallied_since_reset() from here."""
+    from nrslam_tpu_torch.utils import profiler
+
+    global _TALLY_AT_RESET
+    _TALLY_AT_RESET = profiler.tallies()
+
+
+def tallied_since_reset() -> dict:
+    """What the host tally gained since reset_launches(), name -> int."""
+    from nrslam_tpu_torch.utils import profiler
+
+    return {k: v - _TALLY_AT_RESET.get(k, 0)
+            for k, v in profiler.tallies().items()}
+
+
+def launch_counts() -> dict:
+    """The KERNELS' launches since reset_launches(), by kernel."""
+    t = tallied_since_reset()
+    return {k: t.get(f"{k}.launches", 0) for k in KERNELS}
+
+
+def phase_launches(run, route: str):
+    """``run()`` and the launches it made of the partitioned ``route``'s
+    phase kernels, by phase (the host tally's ``route.<phase>``)."""
+    from nrslam_tpu_torch.parallel import dryrun
+
+    out, t = dryrun.tallied(run)
+    return out, {k[len(route) + 1:]: v for k, v in t.items()
+                 if k.startswith(f"{route}.") and k != f"{route}.calls"}
 
 
 def check_launches(label: str, steady: int, keyframes: int) -> dict:
@@ -2336,24 +2343,16 @@ def check_launches(label: str, steady: int, keyframes: int) -> dict:
     the BA once per keyframe, the KLT twice per steady frame (data
     association and point reuse) and once per init frame tracked, the
     triangulation once per non-keyframe."""
-    from nrslam_tpu_torch.ops import klt_cuda
-    from nrslam_tpu_torch.slam import initializer
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
-    from nrslam_tpu_torch.solver import pose_only_cuda
-
-    launches = {"pose_only": pose_only_cuda.launches,
-                "pose_deformation": pdc.launches,
-                "bundle_adjustment": bac.launches,
-                "klt": klt_cuda.launches,
-                "deformable_triangulation": dtc.launches}
-    want = {"pose_only": steady + 3 * initializer.refines,
+    launches = launch_counts()
+    t = tallied_since_reset()
+    refines = t.get("initializer.refines", 0)
+    tracked = t.get("initializer.tracked_frames", 0)
+    want = {"pose_only": steady + 3 * refines,
             "pose_deformation": steady, "bundle_adjustment": keyframes,
-            "klt": 2 * steady + initializer.tracked_frames,
+            "klt": 2 * steady + tracked,
             "deformable_triangulation": steady - keyframes}
-    print(f"[{label}] launches {launches} ({initializer.refines} two-view "
-          f"refinements, {initializer.tracked_frames} init frames tracked, "
+    print(f"[{label}] launches {launches} ({refines} two-view "
+          f"refinements, {tracked} init frames tracked, "
           f"{steady} steady frames, {keyframes} keyframes)")
     if launches != want or not all(launches.values()):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from nrslam_tpu_torch.geometry import cameras
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -36,6 +38,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # loaded library, by file name: kept beside the library when it is built
 # (``.log``, JSON) and read back when a later process loads it.
 build_log: dict = {}
+
+# The camera kinds as csrc/common.cuh numbers them (kPinhole, kKB8), and
+# the parameters a camera of each kind has.
+CAMERA_KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
+CAMERA_PARAMS = {cameras.PINHOLE: 4, cameras.KB8: 8}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -12,9 +12,9 @@ one kernel launch and raises unless every tensor lies on one CUDA device;
 ``track`` does both. There is no fallback: the plain version is
 ``klt.track_plain``, which ``klt.track`` runs for CPU tensors.
 
-``launches`` counts the kernel launches; ``last_iterations`` is the device
-tensor [P] int32 of the LK iterations each point ran in the last launch,
-summed over levels.
+A launch tallies ``klt.launches`` and keeps ``klt.last_iterations``, the
+device tensor [P] int32 of the LK iterations each point ran, summed over
+levels (``utils.profiler``).
 """
 
 from __future__ import annotations
@@ -26,9 +26,7 @@ from typing import NamedTuple
 import torch
 
 from nrslam_tpu_torch import kernels
-
-launches = 0
-last_iterations = None
+from nrslam_tpu_torch.utils import profiler
 
 MAX_LEVELS = 8  # csrc/klt.cu kMaxLevels
 WIN = 21        # csrc/klt.cu kWin
@@ -184,7 +182,6 @@ def launch(prep: Prepared):
     """Run the kernel on a prepared launch; returns (pts [P, 2], status [P]
     in the caller's dtype, iters [P] int32). Raises unless every tensor
     lies on one CUDA device, and on a launch error."""
-    global launches, last_iterations
     dev = prep.pts.device
     for t in prep.tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -195,8 +192,8 @@ def launch(prep: Prepared):
         layout(lib)
         kernels.check_launch("klt", lib.nrslam_klt(
             ctypes.addressof(prep.params), kernels.stream_of(dev)))
-        launches += 1
-    last_iterations = prep.iters
+        profiler.tally("klt.launches")
+    profiler.keep("klt.last_iterations", prep.iters)
     status = prep.status
     if status.dtype != prep.status_dtype:
         status = status.to(prep.status_dtype)

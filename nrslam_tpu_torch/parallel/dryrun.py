@@ -43,6 +43,7 @@ from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.parallel import (ba_points, ba_shard, multihost,
                                        sharding, solve_shard, tracking_shard)
 from nrslam_tpu_torch.parallel.tracking_shard import frame_step_sharded
+from nrslam_tpu_torch.utils import profiler
 from nrslam_tpu_torch.utils.device import resolve
 from nrslam_tpu_torch.utils.tree import leaves as tree_leaves
 from nrslam_tpu_torch.utils.tree import tree_map
@@ -79,22 +80,33 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _launch_counts():
-    """The kernel wrappers' launch counts: the whole-solver kernels by
-    name, the sharded routes' calls and phase launches as ``route.phase``."""
+def _launch_counts(counts=None) -> dict:
+    """The solver launches of a host tally (``counts``, default
+    ``profiler.tallies()``): the whole-solver kernels by name (their
+    ``<name>.launches``), the partitioned routes' calls and phase launches
+    as ``route.phase``."""
     from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
     from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
     from nrslam_tpu_torch.solver import pose_only_cuda
 
-    out = {"pose_only": pose_only_cuda.launches,
-           "pose_deformation": pdc.launches,
-           "bundle_adjustment": bac.launches}
+    t = profiler.tallies() if counts is None else counts
+    out = {k: t.get(f"{k}.launches", 0)
+           for k in ("pose_only", "pose_deformation", "bundle_adjustment")}
     for route, mod in (("pose_only_shard", pose_only_cuda),
                        ("pose_deformation_shard", pdc),
                        ("bundle_adjustment_shard", bac)):
-        out[f"{route}.calls"] = mod.shard_calls
-        out.update({f"{route}.{k}": v for k, v in mod.shard_launches.items()})
+        for k in ("calls", *mod.shard_phase_launches()):
+            out[f"{route}.{k}"] = t.get(f"{route}.{k}", 0)
     return out
+
+
+def tallied(run):
+    """``run()`` and what it added to the host tally (``profiler.record``,
+    then ``replay``, so the tally gains it all the same). Returns (run's
+    result, name -> int)."""
+    out, rec = profiler.record(run)
+    profiler.replay(rec)
+    return out, {**rec.counts, **rec.largest}
 
 
 def frame_launches(keyframes) -> dict:
@@ -145,9 +157,8 @@ def sharded_solves(mesh, cam, T0, X, obs, valid, pairs, scale):
     cam, T0, X, obs, valid, pairs = to_device(
         (cam, T0, X, obs, valid, pairs), mesh.device)
     solves = solve_shard.mesh_solves(mesh)
-    before = _launch_counts()
+    before = profiler.tallies()
     _sync(mesh.device)
-    sharding.traffic.reset()
     t0 = time.perf_counter()
     T = solves.pose_only(cam, T0, X, obs, valid)
     _sync(mesh.device)
@@ -155,10 +166,10 @@ def sharded_solves(mesh, cam, T0, X, obs, valid, pairs, scale):
     res = solves.joint(cam, T, X, obs, valid, pairs, scale)
     _sync(mesh.device)
     ms = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
-    launches = {k: v - before[k] for k, v in _launch_counts().items()}
-    return (convert.to_numpy((T, res)) + (sharding.traffic.count,
-                                          sharding.traffic.bytes, launches,
-                                          ms))
+    t = {k: v - before.get(k, 0) for k, v in profiler.tallies().items()}
+    return convert.to_numpy((T, res)) + (
+        t.get("collectives.payloads", 0), t.get("collectives.bytes", 0),
+        _launch_counts(t), ms)
 
 
 @task
@@ -171,17 +182,15 @@ def points_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
                                          mesh.device)
     problem = problem._replace(obs=sharding.local_block(mesh, problem.obs,
                                                         1))
-    before = _launch_counts()
     _sync(mesh.device)
-    sharding.traffic.reset()
     t0 = time.perf_counter()
-    poses, L = ba_points.local_deformable_ba_sharded(
-        mesh, cam, poses0, L0, problem, n_iters, cg_iters)
+    (poses, L), t = tallied(lambda: ba_points.local_deformable_ba_sharded(
+        mesh, cam, poses0, L0, problem, n_iters, cg_iters))
     _sync(mesh.device)
     ms = 1e3 * (time.perf_counter() - t0)
-    launches = {k: v - before[k] for k, v in _launch_counts().items()}
     return convert.to_numpy((poses, L)) + (
-        sharding.traffic.count, sharding.traffic.bytes, launches, ms)
+        t.get("collectives.payloads", 0), t.get("collectives.bytes", 0),
+        _launch_counts(t), ms)
 
 
 @task
@@ -200,25 +209,22 @@ def kf_sharded_ba(mesh, cam, poses0, L0, problem, n_iters=5, cg_iters=32):
 
 def _frame_reading(step, mesh):
     """``step()`` (one sharded frame) timed on the host clock to the end of
-    its device work, with what its collectives carried (``sharding
-    .traffic`` and its shares; feeding the frame is not part of it) and the
-    kernel launches it made. Returns (step's result, the reading)."""
+    its device work, with what its collectives carried (the host tally's
+    ``collectives`` and its shares; feeding the frame is not part of it)
+    and the kernel launches it made. Returns (step's result, the
+    reading)."""
     _sync(mesh.device)
-    for t in (sharding.traffic, solve_shard.traffic, tracking_shard.traffic):
-        t.reset()
-    before = _launch_counts()
     t0 = time.perf_counter()
-    out = step()
+    out, t = tallied(step)
     _sync(mesh.device)
     return out, {"ms": 1e3 * (time.perf_counter() - t0),
-                 "bytes": sharding.traffic.bytes,
-                 "payloads": sharding.traffic.count,
-                 "max_payload": sharding.traffic.max_elements,
-                 "solve_bytes": solve_shard.traffic.bytes,
-                 "solve_payloads": solve_shard.traffic.count,
-                 "gather_bytes": tracking_shard.traffic.bytes,
-                 "launches": {k: v - before[k]
-                              for k, v in _launch_counts().items()}}
+                 "bytes": t.get("collectives.bytes", 0),
+                 "payloads": t.get("collectives.payloads", 0),
+                 "max_payload": t.get("collectives.largest", 0),
+                 "solve_bytes": t.get("collectives.solve.bytes", 0),
+                 "solve_payloads": t.get("collectives.solve.payloads", 0),
+                 "gather_bytes": t.get("collectives.gather.bytes", 0),
+                 "launches": _launch_counts(t)}
 
 
 # The partitioned routes' phase kernels by their names (csrc/*_shard.cu):
@@ -298,7 +304,8 @@ def _run_frames(mesh, local, frames, mask, cam, config, keyframes,
     """``frame_step_sharded`` from the rank's shard ``local`` over the numpy
     ``frames`` (``keyframes`` flags them). Per frame: n_tracked_3d, the
     LOST flag, ms, the bytes, payloads and largest payload (elements) of
-    its collectives (``sharding.traffic``; feeding the frame is not part
+    its collectives (the host tally's ``collectives``; feeding the frame
+    is not part
     of it) and the shapes of the rank's graph leaves after it. Also the
     kernel launches and, on the card, the rank's peak allocated bytes over
     the frames (``max_memory_allocated`` from the resident state,
@@ -1307,7 +1314,7 @@ def report_frames(tag: str, card: str, r: dict, max_points: int, keyframes,
     whole = whole_gather_frame_bytes(
         Config(max_points=P, max_new_keypoints=256), (480, 640))
     print(f"{tag} P={P} collective payload bytes per frame per rank "
-          f"(sharding.traffic): {r['bytes'][0]} ({r['payloads']} payloads, "
+          f"(collectives.bytes): {r['bytes'][0]} ({r['payloads']} payloads, "
           f"largest {r['max_payload']} elements, P*P/n = {P * P // n}); all "
           f"ranks equal: {r['bytes'].count(r['bytes'][0]) == n}; gathering "
           f"the whole state, graph included: {whole} per frame "

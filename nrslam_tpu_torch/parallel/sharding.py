@@ -25,6 +25,7 @@ single process) every collective is the identity.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,6 +34,7 @@ import torch.distributed as dist
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.slam import graph as graph_mod
 from nrslam_tpu_torch.solver import pose_only
+from nrslam_tpu_torch.utils import profiler
 from nrslam_tpu_torch.utils.device import resolve
 from nrslam_tpu_torch.utils.tree import tree_map
 
@@ -66,35 +68,31 @@ def make_mesh(device=None, axis: str = "pt", group=None) -> Mesh:
 # Collectives (all_reduce only)
 # ---------------------------------------------------------------------------
 
-class Traffic:
-    """What this process's collectives carried since ``reset``: the number
-    of ``all_reduce`` payloads, their bytes (the buffer each rank hands to
-    the collective; a ring all-reduce moves about twice that per rank) and
-    the largest payload's element count."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.count = self.bytes = self.max_elements = 0
-
-    def snapshot(self) -> tuple:
-        """(count, bytes, largest payload's elements), for ``restore``."""
-        return self.count, self.bytes, self.max_elements
-
-    def restore(self, snap: tuple) -> None:
-        """Set the counts a ``snapshot`` took (a captured frame's build
-        restores them; each replay adds what its capture recorded)."""
-        self.count, self.bytes, self.max_elements = snap
-
-    def add(self, x):
-        self.count += 1
-        self.bytes += x.numel() * x.element_size()
-        self.max_elements = max(self.max_elements, x.numel())
+# The shares the collectives in flight also count under (``share``).
+_shares = []
 
 
-# This process's count, read and reset by the sharded runs (``dryrun``).
-traffic = Traffic()
+def _tally(x) -> None:
+    """Tally one collective's payload ``x`` (``utils.profiler``): one
+    payload and its bytes (the buffer each rank hands to the collective; a
+    ring all-reduce moves about twice that per rank) under ``collectives``
+    and each share in flight, its elements in ``collectives.largest``."""
+    nbytes = x.numel() * x.element_size()
+    for name in ("collectives", *_shares):
+        profiler.tally(f"{name}.payloads")
+        profiler.tally(f"{name}.bytes", nbytes)
+    profiler.tally_max("collectives.largest", x.numel())
+
+
+@contextlib.contextmanager
+def share(name: str):
+    """The block's collectives also tallied as ``<name>.payloads`` and
+    ``<name>.bytes``."""
+    _shares.append(name)
+    try:
+        yield
+    finally:
+        _shares.pop()
 
 
 def _wire(x):
@@ -113,7 +111,7 @@ def _all_reduce_packed(mesh: Mesh, tensors, op):
         by_dtype.setdefault(_wire(x).dtype, []).append(k)
     for ks in by_dtype.values():
         flat = torch.cat([_wire(tensors[k]).reshape(-1) for k in ks])
-        traffic.add(flat)
+        _tally(flat)
         dist.all_reduce(flat, op=op, group=mesh.group)
         for k, part in zip(ks, torch.split(
                 flat, [tensors[k].numel() for k in ks])):
@@ -155,7 +153,7 @@ def all_reduce_(mesh: Mesh, buf):
     routes of the sharded solves reduce their packed buffers with it).
     Returns ``buf``."""
     if mesh.group is not None:
-        traffic.add(buf)
+        _tally(buf)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf
 

@@ -60,11 +60,6 @@ _TRIU = torch.triu_indices(6, 6)
 # Points a chunk of the partial sums covers (csrc/*_shard.cu's kChunk).
 CHUNK = 64
 
-# The partitioned solves' share of ``sharding.traffic`` (the collectives'
-# count and bytes of ``mesh_solves``: pose-only, joint and window BA) since
-# its ``reset``.
-traffic = sharding.Traffic()
-
 
 def _rows(terms, blk: slice, P: int):
     """[ceil(P / CHUNK), S]: the per-point ``terms`` [m, S] of the rank's
@@ -463,11 +458,8 @@ def mesh_solves(mesh: Mesh) -> tracking.Solves:
 
     def counted(fn):
         def run(*args, **kw):
-            count, nbytes = sharding.traffic.count, sharding.traffic.bytes
-            out = fn(*args, **kw)
-            traffic.count += sharding.traffic.count - count
-            traffic.bytes += sharding.traffic.bytes - nbytes
-            return out
+            with sharding.share("collectives.solve"):
+                return fn(*args, **kw)
         return run
 
     @counted

@@ -75,10 +75,6 @@ from nrslam_tpu_torch.utils import profiler, tree
 from nrslam_tpu_torch.utils.tree import tree_map
 
 
-# The payloads of the gather of the state's [P] arrays at the start of
-# each frame (``sharding.Traffic``) since its ``reset``.
-traffic = sharding.Traffic()
-
 # The keyframe ring's point-axis leaves (a rank keeps its columns) and the
 # temporal ring's (replicated in the sharded frame).
 KF_RING = ("kf_keypoints", "kf_obs", "kf_positions")
@@ -161,11 +157,9 @@ def frame_step_unchecked(mesh: Mesh, local_state: SlamState, gray, mask,
     profiler.stage("tracking.solve")
 
     refs = s.refs
-    count, nbytes = sharding.traffic.count, sharding.traffic.bytes
-    full = sharding.unshard_state(s._replace(refs=None, graph=None), mesh,
-                                  axes)._replace(graph=s.graph)
-    traffic.count += sharding.traffic.count - count
-    traffic.bytes += sharding.traffic.bytes - nbytes
+    with sharding.share("collectives.gather"):
+        full = sharding.unshard_state(s._replace(refs=None, graph=None),
+                                      mesh, axes)._replace(graph=s.graph)
     full = tracking.track_camera_and_deformation(full, cam, config, rows,
                                                  solves)
 

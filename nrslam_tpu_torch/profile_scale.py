@@ -60,8 +60,6 @@ def bench_point(max_points: int, h: int, w: int, new_kp: int,
     """One operating point's row of ``POINT_KEYS`` (the module's
     docstring says how each is taken)."""
     from nrslam_tpu_torch.slam import frame_graph, system
-    from nrslam_tpu_torch.solver import bundle_adjustment_cuda as bac
-    from nrslam_tpu_torch.solver import pose_deformation_cuda as pdc
 
     dev = resolve(device)
     state, frames, mask, cam, config = bench_problem.build_bench_problem(
@@ -91,7 +89,8 @@ def bench_point(max_points: int, h: int, w: int, new_kp: int,
     return dict(P=max_points, h=h, w=w, new_kp=new_kp, fps=1.0 / dt,
                 frame_ms=1e3 * dt, warmup_s=warmup_s, replayed_fps=1.0 / dt_r,
                 replayed_frame_ms=1e3 * dt_r, build_s=fg.build_s,
-                joint_plan=_plan(pdc.last_work), ba_plan=_plan(bac.last_work))
+                joint_plan=_plan(profiler.kept("pose_deformation.last_work")),
+                ba_plan=_plan(profiler.kept("bundle_adjustment.last_work")))
 
 
 def init_scene(h: int, w: int) -> dict:
@@ -120,7 +119,6 @@ def init_at_scale(max_features: int = 4000, h: int = 480, w: int = 640,
     from nrslam_tpu_torch.ops import klt
     from nrslam_tpu_torch.slam import initializer, system
     from nrslam_tpu_torch.slam.state import Config
-    from nrslam_tpu_torch.solver import pose_only_cuda
 
     dev = resolve(device)
     scene = synthetic.SceneConfig(**init_scene(h, w))
@@ -152,17 +150,17 @@ def init_at_scale(max_features: int = 4000, h: int = 480, w: int = 640,
 
     one_pass(st)
     torch.cuda.synchronize(dev)
-    refines, launches = initializer.refines, pose_only_cuda.launches
     t0 = time.perf_counter()
-    flags = one_pass(st)
+    flags, rec = profiler.record(lambda: one_pass(st))
     torch.cuda.synchronize(dev)
     per_frame_ms = 1e3 * (time.perf_counter() - t0) / n_frames
+    profiler.replay(rec)
     return dict(max_features=max_features, h=h, w=w,
                 init_frame_ms=per_frame_ms, success=any(flags),
                 first_reset_s=first_reset_s, features=int(st.valid.sum()),
                 success_frames=[i + 1 for i, ok in enumerate(flags) if ok],
-                refines=initializer.refines - refines,
-                pose_only_launches=pose_only_cuda.launches - launches)
+                refines=rec.counts.get("initializer.refines", 0),
+                pose_only_launches=rec.counts.get("pose_only.launches", 0))
 
 
 def main(argv=None):

@@ -16,16 +16,15 @@ the frame's kind, and returns a snapshot (one copy of the packed buffer
 into a fresh allocation), so no later replay writes into anything a step
 returned.
 
-The counted globals a capture sets (``wrapper_globals``: the wrappers'
-launch counts, the partitioned routes' calls and phase launches, the
-handles of their last device header, and the collective payload counts of
-``parallel``'s ``Traffic`` objects) are Python statements that run while a
-graph is captured, never while it replays: the build leaves them as it
-found them (``record``), and every replay adds what its capture recorded
-(``add_recorded``). ``KindGraphs`` is what this graph and the sharded
-frame's (``parallel.frame_graph_shard.ShardFrameGraph``) share: the
-packing, the warm-up on a scratch copy on a side stream, one capture per
-kind with its own pool, and the replay with its snapshot.
+The host tally (``utils.profiler.tally``: kernel launches, solver calls,
+collective payloads, the last launch's device headers) is Python that runs
+while a graph is captured, never while it replays: the build leaves it as
+it found it, and every replay adds what its capture recorded
+(``profiler.record`` / ``profiler.replay``). ``KindGraphs`` is what this
+graph and the sharded frame's
+(``parallel.frame_graph_shard.ShardFrameGraph``) share: the packing, the
+warm-up on a scratch copy on a side stream, one capture per kind with its
+own pool, and the replay with its snapshot.
 
 Each kind's capture also takes the frame's stage stamps
 (``utils.profiler.Stamps``): a mark of the device's timer at every stage
@@ -51,123 +50,6 @@ from nrslam_tpu_torch.slam import system as system_mod
 from nrslam_tpu_torch.slam import tracking
 from nrslam_tpu_torch.slam.state import Config
 from nrslam_tpu_torch.utils import profiler, tree
-
-# The counted module globals a capture sets, by owner: counts (ints added
-# to on every replay), counts by phase (dicts, mutated in place), handles
-# of the last launch's device header, and the owners of a ``traffic``
-# (``sharding.Traffic``: payloads, bytes, largest payload). An owner has
-# the counts of its routes (``klt_cuda`` and
-# ``deformable_triangulation_cuda`` no partitioned one).
-_INTS = ("launches", "shard_calls")
-_DICTS = ("shard_launches",)
-_HANDLES = {"pose_only_cuda": ("last_lm_steps", "shard_last_steps"),
-            "pose_deformation_cuda": ("last_work", "shard_last_work"),
-            "bundle_adjustment_cuda": ("last_work", "shard_last_work"),
-            "klt_cuda": ("last_iterations",),
-            "deformable_triangulation_cuda": ("last_accepted",)}
-_TRAFFIC = ("sharding", "tracking_shard", "solve_shard")
-
-
-def _owners():
-    from nrslam_tpu_torch.ops import klt_cuda
-    from nrslam_tpu_torch.parallel import sharding, solve_shard, tracking_shard
-    from nrslam_tpu_torch.solver import (bundle_adjustment_cuda,
-                                         deformable_triangulation_cuda,
-                                         pose_deformation_cuda,
-                                         pose_only_cuda)
-    return {"pose_only_cuda": pose_only_cuda,
-            "pose_deformation_cuda": pose_deformation_cuda,
-            "bundle_adjustment_cuda": bundle_adjustment_cuda,
-            "klt_cuda": klt_cuda,
-            "deformable_triangulation_cuda": deformable_triangulation_cuda,
-            "sharding": sharding, "tracking_shard": tracking_shard,
-            "solve_shard": solve_shard}
-
-
-def wrapper_globals() -> dict:
-    """(owner, attribute) -> value of every counted global: ints, copies
-    of the dicts by phase, ``Traffic.snapshot`` tuples under ``traffic``,
-    and the handles themselves (``is_handle``)."""
-    mods = _owners()
-    out = {}
-    for m, handles in _HANDLES.items():
-        for a in _INTS + handles:
-            if hasattr(mods[m], a):
-                out[(m, a)] = getattr(mods[m], a)
-        for a in _DICTS:
-            if hasattr(mods[m], a):
-                out[(m, a)] = dict(getattr(mods[m], a))
-    for m in _TRAFFIC:
-        out[(m, "traffic")] = mods[m].traffic.snapshot()
-    return out
-
-
-def is_handle(key) -> bool:
-    """Whether a ``wrapper_globals`` key names a handle (not a count)."""
-    return key[1] in _HANDLES.get(key[0], ())
-
-
-def set_wrapper_globals(values: dict) -> None:
-    """Set the globals ``values`` names (as ``wrapper_globals`` keys them;
-    a dict by phase is updated in place)."""
-    mods = _owners()
-    for (m, a), v in values.items():
-        if a == "traffic":
-            mods[m].traffic.restore(v)
-        elif a in _DICTS:
-            getattr(mods[m], a).update(v)
-        else:
-            setattr(mods[m], a, v)
-
-
-def _zero(key, v):
-    if is_handle(key):
-        return None
-    if key[1] == "traffic":
-        return (0, 0, 0)
-    return dict.fromkeys(v, 0) if isinstance(v, dict) else 0
-
-
-def _moved(v) -> bool:
-    if isinstance(v, dict):
-        return any(v.values())
-    return any(v) if isinstance(v, tuple) else v != 0
-
-
-def record(run):
-    """``run()`` with every counted global started from zero and set back
-    as it was afterwards. Returns (run's result, the counts it made that
-    are not zero, the handles it set)."""
-    saved = wrapper_globals()
-    set_wrapper_globals({k: _zero(k, v) for k, v in saved.items()})
-    try:
-        out = run()
-        after = wrapper_globals()
-    finally:
-        set_wrapper_globals(saved)
-    counts = {k: v for k, v in after.items()
-              if not is_handle(k) and _moved(v)}
-    handles = {k: v for k, v in after.items()
-               if is_handle(k) and v is not None}
-    return out, counts, handles
-
-
-def add_recorded(counts: dict, handles: dict) -> None:
-    """What a replay does to the counted globals: adds ``counts`` (a
-    ``record``; a traffic's largest payload is the larger of the two) and
-    sets ``handles``."""
-    now = wrapper_globals()
-    new = {}
-    for k, v in counts.items():
-        cur = now[k]
-        if k[1] == "traffic":
-            new[k] = (cur[0] + v[0], cur[1] + v[1], max(cur[2], v[2]))
-        elif isinstance(v, dict):
-            new[k] = {p: cur[p] + n for p, n in v.items()}
-        else:
-            new[k] = cur + v
-    set_wrapper_globals(new)
-    set_wrapper_globals(handles)
 
 
 def result_like(state) -> tracking.FrameResult:
@@ -198,8 +80,9 @@ class KindGraphs:
     writes the frame of kind ``kf`` from ``views[0]`` into ``views``, and
     ``_check()``, which raises where the inputs cannot be captured.
 
-    ``replays`` counts replays; ``launches[kf]`` the counts the capture of
-    kind ``kf`` recorded (``record``: what each replay adds);
+    ``replays`` counts replays; ``recorded[kf]`` the host tally the
+    capture of kind ``kf`` recorded (``profiler.record``: what each replay
+    adds);
     ``pool_bytes[kf]`` the device memory its capture reserved;
     ``stamps[kf]`` its ``profiler.Stamps`` (the stage names in capture
     order, the graph's nodes at each mark, the counters, and the buffer a
@@ -217,9 +100,9 @@ class KindGraphs:
         self.gray = gray.contiguous().clone()
         self.mask = mask.contiguous().clone()
         self.replays = 0
-        self.launches, self.pool_bytes, self.stamps = {}, {}, {}
+        self.recorded, self.pool_bytes, self.stamps = {}, {}, {}
         self.capture_s = {}
-        self._handles, self._graphs, self._last = {}, {}, None
+        self._graphs, self._last = {}, None
         t0 = time.perf_counter()
         self._build()
         self.build_s = time.perf_counter() - t0
@@ -235,8 +118,7 @@ class KindGraphs:
         a side stream (the kernel library, cached device constants, the
         cuBLAS handles, a process group's communicator; no mark or count
         is taken, ``profiler.QUIET``), then capture both kinds; the static
-        state does not advance, and the counted globals end as they
-        began."""
+        state does not advance, and the host tally ends as it began."""
         self._check()
         dev = self.device
 
@@ -250,7 +132,7 @@ class KindGraphs:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
 
-        record(warm_up)
+        profiler.record(warm_up)
         for kf in (False, True):
             self.stamps[kf] = profiler.Stamps(dev)
         for kf in (False, True):
@@ -259,7 +141,7 @@ class KindGraphs:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             t0 = time.perf_counter()
-            graph, self.launches[kf], self._handles[kf] = record(
+            graph, self.recorded[kf] = profiler.record(
                 lambda: self._capture(kf))
             self.capture_s[kf] = time.perf_counter() - t0
             self.pool_bytes[kf] = torch.cuda.memory_reserved(dev) - reserved
@@ -293,7 +175,7 @@ class KindGraphs:
             self._graphs[kf].replay()
         with profiler.span("nrslam.frame_graph.count"):
             self.replays += 1
-            add_recorded(self.launches[kf], self._handles[kf])
+            profiler.replay(self.recorded[kf])
         with profiler.span("nrslam.frame_graph.snapshot"):
             out = tree.unpack(self.buf.clone(), self.packing)
         self._last = out[0]

@@ -41,12 +41,6 @@ from nrslam_tpu_torch.geometry import cameras, se3, triangulation
 from nrslam_tpu_torch.ops import klt, shi_tomasi
 from nrslam_tpu_torch.utils import profiler
 
-# Two-view refinements run (each is three pose-only solves; on the card
-# three launches of the pose-only kernel), and frames tracked against the
-# reference (on the card one launch of the KLT kernel each).
-refines = 0
-tracked_frames = 0
-
 
 class InitializerConfig(NamedTuple):
     max_features: int = 1024
@@ -116,9 +110,9 @@ def _reset(pyramid, mask, next_track_id, klt_config: klt.KLTConfig,
 def track_frame(state: InitializerState, pyramid, klt_config: klt.KLTConfig,
                 config: InitializerConfig):
     """KLT data association against the reference image. Returns
-    (state, n_matches)."""
-    global tracked_frames
-    tracked_frames += 1
+    (state, n_matches). Tallies ``initializer.tracked_frames`` (on the
+    card one launch of the KLT kernel each)."""
+    profiler.tally("initializer.tracked_frames")
     pts, status = klt.track(pyramid, state.refs, state.cur_keypoints,
                             state.status, klt_config,
                             min_ssim=config.klt_min_ssim)
@@ -314,8 +308,9 @@ def _refine(cam, result: InitializationResult, inliers,
             config: InitializerConfig) -> InitializationResult:
     """Two-view refinement of a successful attempt: alternate pose-only LM
     against the triangulated structure with midpoint re-triangulation,
-    three times (initializer.py:337-350 of the JAX package)."""
-    global refines
+    three times (initializer.py:337-350 of the JAX package). Tallies
+    ``initializer.refines`` (on the card three launches of the pose-only
+    kernel each)."""
     from nrslam_tpu_torch.solver import pose_only
 
     T, X, ok = result.Tcw, result.landmarks, result.point_ok
@@ -327,7 +322,7 @@ def _refine(cam, result: InitializationResult, inliers,
             X, ok_r, _ = reconstruct_points(cam, T, result.ref_keypoints,
                                             result.cur_keypoints, inliers,
                                             config)
-    refines += 1
+    profiler.tally("initializer.refines")
     return result._replace(Tcw=T, landmarks=X, point_ok=ok & ok_r)
 
 

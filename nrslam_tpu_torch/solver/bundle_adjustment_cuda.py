@@ -13,16 +13,19 @@ masked term and returns those copies unchanged.
 ``prepare`` builds a launch's inputs and layout, ``launch`` runs the kernel
 on them (``local_deformable_ba_cuda`` does both). Takes CUDA tensors only
 and raises otherwise, or when the card refuses the cluster; the plain
-version is ``bundle_adjustment.local_deformable_ba_plain``. ``launches``
-counts launches; ``last_work`` is the device header of the last launch
-(``pose_deformation_cuda.WORK_FIELDS``).
+version is ``bundle_adjustment.local_deformable_ba_plain``. A launch
+tallies ``bundle_adjustment.launches`` and keeps
+``bundle_adjustment.last_work``, the device header it wrote
+(``pose_deformation_cuda.WORK_FIELDS``; ``utils.profiler``).
 
 ``shard`` is the partitioned route of the sharded frame
 (``parallel.ba_points``): the phase kernels of
 csrc/bundle_adjustment_shard.cu over a rank's points, all their copies and
 their edge-ends (over the edges some spring uses), each phase one thread
 block cluster whose blocks own whole chunks of the rank's points
-(``shard_tables``), with the caller's all-reduce between launches.
+(``shard_tables``), with the caller's all-reduce between launches. It
+tallies ``bundle_adjustment_shard.calls`` and its launches by phase and
+keeps ``bundle_adjustment_shard.last_work`` (``SHARD_WORK_FIELDS``).
 """
 
 from __future__ import annotations
@@ -36,19 +39,9 @@ from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.solver.pose_deformation_cuda import (
     SHARD_WORK_FIELDS, WORK_FIELDS, Prepared, cluster_layout, shard_plan)
-
-launches = 0
-last_work = None
-# Launches of the partitioned route's phase kernels (``shard``), by phase,
-# and its calls; ``shard_last_work`` is the device row of the last call's
-# counts (``SHARD_WORK_FIELDS``).
-shard_launches = {"init": 0, "lin": 0, "step": 0, "hv": 0, "cg": 0}
-shard_calls = 0
-shard_last_work = None
+from nrslam_tpu_torch.utils import profiler
 
 MAX_K = 8
-_KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
-
 
 def prepare(cam: cameras.Camera, poses0: se3.SE3, L0, problem,
             n_iters: int = 5, cg_iters: int = 32) -> Prepared:
@@ -96,21 +89,21 @@ def prepare(cam: cameras.Camera, poses0: se3.SE3, L0, problem,
                           dtype=torch.float32, device=dev)
     out = (torch.empty((K, 8), dtype=torch.float32, device=dev),
            torch.empty((K, P, 3), dtype=torch.float32, device=dev))
-    sizes = (K, P, E, n_ends, _KINDS[cam.kind], n_iters, cg_iters)
+    sizes = (K, P, E, n_ends, kernels.CAMERA_KINDS[cam.kind], n_iters, cg_iters)
     return Prepared(tensors, sizes, scratch, out)
 
 
 def launch(prep: Prepared):
     """Run the kernel on a prepared launch; returns (poses [K, 8],
     landmarks [K, P, 3]), the tensors of ``prep.out``."""
-    global launches, last_work
     dev = prep.scratch.device
     rc = kernels.library().nrslam_ba(
         *(t.data_ptr() for t in (*prep.tensors, prep.scratch, *prep.out)),
         *prep.sizes, kernels.stream_of(dev))
     kernels.check_launch("bundle_adjustment", rc)
-    launches += 1
-    last_work = prep.scratch[:len(WORK_FIELDS)].view(torch.int32)
+    profiler.tally("bundle_adjustment.launches")
+    profiler.keep("bundle_adjustment.last_work",
+                  prep.scratch[:len(WORK_FIELDS)].view(torch.int32))
     return prep.out
 
 
@@ -171,7 +164,6 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
     place (``sharding.all_reduce_``) between launches, as ``ba_points``
     lays out. Returns (poses [W], copies [W, P, 3]), the same on every
     rank. Raises if a kernel cannot build or launch."""
-    global shard_calls, shard_last_work
     W, P, _ = L0.shape
     p0, m = block.start, block.stop - block.start
     if not 1 <= W <= MAX_K or obs.shape != (W, m, 2) \
@@ -213,7 +205,7 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
     out_pose = torch.empty((W, 8), dtype=torch.float32, device=dev)
     out_L = torch.empty((P, W, 3), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
-    args = (ptrs[0], _KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
+    args = (ptrs[0], kernels.CAMERA_KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
             out_pose.data_ptr(), out_L.data_ptr(), W, P, m, p0, n_ends, rank,
             n, kernels.stream_of(dev))
     q = 0  # launches so far: launch q reads st's slot q % 2
@@ -222,7 +214,7 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
         nonlocal q
         rc = lib.nrslam_ba_shard(_PHASES.index(phase), arg, q & 1, C, *args)
         kernels.check_launch(f"bundle_adjustment shard {phase}", rc)
-        shard_launches[phase] += 1
+        profiler.tally(f"bundle_adjustment_shard.{phase}")
         q += 1
 
     run("init")
@@ -241,7 +233,8 @@ def shard(cam: cameras.Camera, poses0: se3.SE3, L0, obs, obs_ok, pairs,
         run("lin", _TRIAL)
         reduce(reds[:S * nc])
         run("step", 4 | (_NEXT_CG if it + 1 < n_iters else _NEXT_FINAL))
-    shard_calls += 1
+    profiler.tally("bundle_adjustment_shard.calls")
     at = st_at + (q & 1) * st_n + work_at
-    shard_last_work = scratch[at:at + len(SHARD_WORK_FIELDS)]
+    profiler.keep("bundle_adjustment_shard.last_work",
+                  scratch[at:at + len(SHARD_WORK_FIELDS)])
     return se3.SE3(out_pose[:, :4], out_pose[:, 4:7]), out_L.transpose(0, 1)

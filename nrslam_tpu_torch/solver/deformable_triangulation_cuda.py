@@ -13,8 +13,9 @@ on one CUDA device; ``triangulate`` does both. There is no fallback: the
 plain version is ``deformable_triangulation.deformable_triangulate_plain``,
 which ``deformable_triangulate`` runs for CPU tensors.
 
-``launches`` counts the kernel launches; ``last_accepted`` is the device
-tensor [C] int32 of the LM steps each candidate accepted in the last launch.
+A launch tallies ``deformable_triangulation.launches`` and keeps
+``deformable_triangulation.last_accepted``, the device tensor [C] int32 of
+the LM steps each candidate accepted (``utils.profiler``).
 """
 
 from __future__ import annotations
@@ -26,15 +27,10 @@ from typing import NamedTuple
 import torch
 
 from nrslam_tpu_torch import kernels
-from nrslam_tpu_torch.geometry import cameras
-
-launches = 0
-last_accepted = None
+from nrslam_tpu_torch.utils import profiler
 
 MAX_T = 32    # csrc/deformable_triangulation.cu kMaxT
 MAX_NB = 32   # csrc/deformable_triangulation.cu kMaxNb
-KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}  # common.cuh kPinhole, kKB8
-_CAM_PARAMS = {cameras.PINHOLE: 4, cameras.KB8: 8}
 
 
 class Params(ctypes.Structure):
@@ -92,8 +88,8 @@ def prepare(cam, inputs, Tcw, rad_per_pixel: float, min_track: int = 5,
         raise ValueError(f"deformable_triangulation_cuda: T={T}, NB={NB}; "
                          f"the kernel takes 1..{MAX_T} frames and 1.."
                          f"{MAX_NB} neighbours")
-    if cam.kind not in KINDS \
-            or cam.params.shape != (_CAM_PARAMS[cam.kind],):
+    if cam.kind not in kernels.CAMERA_KINDS \
+            or cam.params.shape != (kernels.CAMERA_PARAMS[cam.kind],):
         raise ValueError(f"deformable_triangulation_cuda: camera "
                          f"{cam.kind} with {tuple(cam.params.shape)} "
                          "parameters")
@@ -127,7 +123,7 @@ def prepare(cam, inputs, Tcw, rad_per_pixel: float, min_track: int = 5,
     prm.nv_sc, prm.nv_sn, prm.nv_st = nbr_valid.stride()
     (prm.cand_s,) = cand.stride()
     prm.C, prm.T, prm.NB = C, T, NB
-    prm.kind = KINDS[cam.kind]
+    prm.kind = kernels.CAMERA_KINDS[cam.kind]
     prm.min_track, prm.n_iters, prm.cg_iters = min_track, n_iters, cg_iters
     # rigid_pregate's threshold: the product in double, then the float32
     # the comparison with a float32 tensor reads.
@@ -159,7 +155,6 @@ def launch(prep: Prepared):
     """Run the kernel on a prepared launch; returns (landmark [C, 3], ok
     [C], accepted [C] int32). Raises unless every tensor lies on one CUDA
     device, and on a launch error."""
-    global launches, last_accepted
     dev = prep.landmark.device
     for x in prep.tensors:
         if x.device.type != "cuda" or x.device != dev:
@@ -172,8 +167,8 @@ def launch(prep: Prepared):
                              lib.nrslam_deformable_triangulation(
                                  ctypes.addressof(prep.params),
                                  kernels.stream_of(dev)))
-        launches += 1
-    last_accepted = prep.accepted
+        profiler.tally("deformable_triangulation.launches")
+    profiler.keep("deformable_triangulation.last_accepted", prep.accepted)
     return prep.landmark, prep.ok, prep.accepted
 
 

@@ -14,15 +14,18 @@ point's incident live edges, which edge-ends. Post-gates stay in
 ``prepare`` builds a launch's inputs and layout, ``launch`` runs the kernel
 on them (``pose_deformation_cuda`` does both). Takes CUDA tensors only and
 raises otherwise, or when the card refuses the cluster; the plain version is
-``pose_deformation.pose_deformation_plain``. ``launches`` counts launches;
-``last_work`` is the device header of the last launch (``WORK_FIELDS``).
+``pose_deformation.pose_deformation_plain``. A launch tallies
+``pose_deformation.launches`` and keeps ``pose_deformation.last_work``, the
+device header it wrote (``WORK_FIELDS``; ``utils.profiler``).
 
 ``shard`` is the partitioned route of the sharded frame
 (``parallel.solve_shard``): the phase kernels of
 csrc/pose_deformation_shard.cu over a rank's points and their edge-ends,
 each phase one thread block cluster whose blocks own whole chunks of the
 rank's points (``shard_plan``: the blocks and the per-end table, device
-ops), with the caller's all-reduce between launches.
+ops), with the caller's all-reduce between launches. It tallies
+``pose_deformation_shard.calls`` and its launches by phase and keeps
+``pose_deformation_shard.last_work`` (``SHARD_WORK_FIELDS``).
 """
 
 from __future__ import annotations
@@ -35,23 +38,15 @@ import torch.nn.functional as F
 
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
+from nrslam_tpu_torch.utils import profiler
 
-launches = 0
-last_work = None
-# Launches of the sharded route's phase kernels (``shard``), by phase, and
-# its calls; ``shard_last_work`` is the device row of the last call's
-# counts (SHARD_WORK_FIELDS).
-shard_launches = {"init": 0, "lin": 0, "step": 0, "hv": 0, "cg": 0}
-shard_calls = 0
-shard_last_work = None
+# The counts a ``shard`` call's device row holds.
 SHARD_WORK_FIELDS = ("lm_steps", "cg_trips", "linearizations")
 
 # The int32 header the kernels write at the start of their scratch.
 WORK_FIELDS = ("lm_steps", "cg_trips", "linearizations", "blocks",
                "edge_ends_in_smem", "full_vectors_in_smem", "smem_bytes",
                "owned_state_in_smem")
-
-_KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
 
 
 def incidence_csr(i, j, live, P: int):
@@ -155,21 +150,21 @@ def prepare(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid,
            torch.empty((P, 3), dtype=torch.float32, device=dev),
            torch.empty(P, dtype=torch.float32, device=dev))
     it = list(rounds) + [0] * (4 - len(rounds))
-    sizes = (P, E, n_ends, _KINDS[cam.kind], len(rounds), *it, cg_iters)
+    sizes = (P, E, n_ends, kernels.CAMERA_KINDS[cam.kind], len(rounds), *it, cg_iters)
     return Prepared(tensors, sizes, scratch, out)
 
 
 def launch(prep: Prepared):
     """Run the kernel on a prepared launch; returns (pose [8], flows [P, 3],
     chi2 [P]), the tensors of ``prep.out``."""
-    global launches, last_work
     dev = prep.scratch.device
     rc = kernels.library().nrslam_pose_deformation(
         *(t.data_ptr() for t in (*prep.tensors, prep.scratch, *prep.out)),
         *prep.sizes, kernels.stream_of(dev))
     kernels.check_launch("pose_deformation", rc)
-    launches += 1
-    last_work = prep.scratch[:len(WORK_FIELDS)].view(torch.int32)
+    profiler.tally("pose_deformation.launches")
+    profiler.keep("pose_deformation.last_work",
+                  prep.scratch[:len(WORK_FIELDS)].view(torch.int32))
     return prep.out
 
 
@@ -247,7 +242,6 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
     launches, as ``solve_shard`` lays out. Returns (Tcw, flows [P, 3],
     chi2_r [P]), the same on every rank. Raises if a kernel cannot build or
     launch."""
-    global shard_calls, shard_last_work
     from nrslam_tpu_torch.solver.pose_deformation import infos_for
 
     P = rest.shape[0]
@@ -293,7 +287,7 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
     out_pose = torch.empty(8, dtype=torch.float32, device=dev)
     out_flows = torch.empty((P, 3), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
-    args = (ptrs[0], _KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
+    args = (ptrs[0], kernels.CAMERA_KINDS[cam.kind], *ptrs[1:], scratch.data_ptr(),
             out_pose.data_ptr(), out_flows.data_ptr(), P, m, p0, n_ends,
             rank, n, kernels.stream_of(dev))
     q = 0  # launches so far: launch q reads st's slot q % 2
@@ -303,7 +297,7 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
         rc = lib.nrslam_joint_shard(_PHASES.index(phase), arg, q & 1, C,
                                     *args)
         kernels.check_launch(f"pose_deformation shard {phase}", rc)
-        shard_launches[phase] += 1
+        profiler.tally(f"pose_deformation_shard.{phase}")
         q += 1
 
     run("init")
@@ -324,7 +318,8 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, rest, obs, point_valid, pairs,
             reduce(reds[:28 * nc])
             run("step", 4 | (_NEXT_CG if it + 1 < n_lm else after))
     reduce(red[:P])
-    shard_calls += 1
+    profiler.tally("pose_deformation_shard.calls")
     at = st_at + (q & 1) * st_n + work_at
-    shard_last_work = scratch[at:at + len(SHARD_WORK_FIELDS)]
+    profiler.keep("pose_deformation_shard.last_work",
+                  scratch[at:at + len(SHARD_WORK_FIELDS)])
     return se3.SE3(out_pose[:4], out_pose[4:7]), out_flows, red[:P]

@@ -8,13 +8,15 @@ kernel launch (``camera_pose_optimization_cuda`` does both). The kernel
 reads the camera, the seed pose and the bool mask through their own
 pointers and writes q normalised, so a call launches one device kernel.
 Takes CUDA tensors only and raises otherwise; the plain PyTorch version is
-``pose_only.camera_pose_optimization_plain``. ``launches`` counts the kernel
-launches; ``last_lm_steps`` is a device tensor [1] holding the LM steps the
-last launch ran.
+``pose_only.camera_pose_optimization_plain``. A launch tallies
+``pose_only.launches`` and keeps ``pose_only.last_lm_steps``, a device
+tensor [1] holding the LM steps it ran (``utils.profiler``).
 
 ``shard`` is the partitioned route of the sharded frame
 (``parallel.solve_shard``): the phase kernels of csrc/pose_only_shard.cu
-over a rank's points, with the caller's all-reduce between launches.
+over a rank's points, with the caller's all-reduce between launches; it
+tallies ``pose_only_shard.calls`` and its launches by phase
+(``pose_only_shard.<phase>``) and keeps ``pose_only_shard.last_lm_steps``.
 """
 
 from __future__ import annotations
@@ -28,18 +30,7 @@ import torch.nn.functional as F
 
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
-
-launches = 0
-last_lm_steps = None
-# Launches of the sharded route's phase kernels (``shard``), by phase, and
-# its calls; ``shard_last_steps`` a device tensor [1] holding the LM steps
-# the last call ran.
-shard_launches = {"partials": 0, "step": 0, "relevel": 0}
-shard_calls = 0
-shard_last_steps = None
-
-_KINDS = {cameras.PINHOLE: 0, cameras.KB8: 1}
-_N_PARAMS = {cameras.PINHOLE: 4, cameras.KB8: 8}
+from nrslam_tpu_torch.utils import profiler
 
 # The thread count aims at this many points a thread.
 POINTS_PER_THREAD = 3
@@ -126,7 +117,7 @@ def prepare(cam: cameras.Camera, Tcw0: se3.SE3, landmarks, obs, valid,
     rounds = tuple(int(n) for n in rounds)
     if any(n < 0 for n in rounds):
         raise ValueError(f"pose_only: negative LM steps in rounds {rounds}")
-    if cam.params.shape != (_N_PARAMS[cam.kind],) \
+    if cam.params.shape != (kernels.CAMERA_PARAMS[cam.kind],) \
             or Tcw0.q.shape != (4,) or Tcw0.t.shape != (3,):
         raise ValueError("pose_only: expected one camera and one pose")
 
@@ -142,13 +133,12 @@ def prepare(cam: cameras.Camera, Tcw0: se3.SE3, landmarks, obs, valid,
                 if pl.n_gl else None)
     out = torch.empty(8, dtype=torch.float32, device=dev)
     return Prepared(tensors + (_schedule(rounds, dev),), gl_state, out, pl,
-                    (P, _KINDS[cam.kind], len(rounds)))
+                    (P, kernels.CAMERA_KINDS[cam.kind], len(rounds)))
 
 
 def launch(prep: Prepared) -> torch.Tensor:
     """Run the kernel on a prepared launch; returns ``prep.out`` = (q
     normalised, t, LM steps run)."""
-    global launches, last_lm_steps
     pl = prep.plan
     rc = kernels.library().nrslam_pose_only(
         *(t.data_ptr() for t in prep.tensors),
@@ -156,8 +146,8 @@ def launch(prep: Prepared) -> torch.Tensor:
         prep.out.data_ptr(), *prep.sizes, pl.threads, pl.n_reg, pl.n_sh,
         pl.smem_bytes, kernels.stream_of(prep.out.device))
     kernels.check_launch("pose_only", rc)
-    launches += 1
-    last_lm_steps = prep.out[7:]
+    profiler.tally("pose_only.launches")
+    profiler.keep("pose_only.last_lm_steps", prep.out[7:])
     return prep.out
 
 
@@ -197,7 +187,6 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, X, obs, valid, rounds,
     ``sharding.all_reduce_``), the LM step on the device; the re-level
     between rounds on the rank's points. The same pose on every rank (q
     normalised). Raises if a kernel cannot build or launch."""
-    global shard_calls, shard_last_steps
     m = X.shape[0]
     rounds = tuple(int(n) for n in rounds)
     if X.shape != (m, 3) or obs.shape != (m, 2) or valid.shape != (m,):
@@ -219,11 +208,11 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, X, obs, valid, rounds,
     st[seed_at + 4:seed_at + 7] = Tcw0.t
     level = valid.clone()
     red = torch.empty(28 * nc, dtype=torch.float32, device=dev)
-    kind, stream = _KINDS[cam.kind], kernels.stream_of(dev)
+    kind, stream = kernels.CAMERA_KINDS[cam.kind], kernels.stream_of(dev)
 
     def run(phase, rc):
         kernels.check_launch(f"pose_only shard {phase}", rc)
-        shard_launches[phase] += 1
+        profiler.tally(f"pose_only_shard.{phase}")
 
     for r, n in enumerate(rounds):
         for k in range(n + 1):
@@ -240,6 +229,6 @@ def shard(cam: cameras.Camera, Tcw0: se3.SE3, X, obs, valid, rounds,
                 params.data_ptr(), st.data_ptr(), X.data_ptr(),
                 obs.data_ptr(), valid.data_ptr(), level.data_ptr(), m, kind,
                 stream))
-    shard_calls += 1
-    shard_last_steps = st[out_at + 7:out_at + 8]
+    profiler.tally("pose_only_shard.calls")
+    profiler.keep("pose_only_shard.last_lm_steps", st[out_at + 7:out_at + 8])
     return se3.SE3(st[out_at:out_at + 4], st[out_at + 4:out_at + 7])

@@ -7,7 +7,11 @@ sigma, a statistics file), as the reference's TimeProfiler
 tracer that ``tracing`` turns on it also records the program's spans
 (``span``), one record per ``System.track_image`` call (``frames``), the
 device stage times of a replayed frame (``stage``, ``Stamps``) and the
-per-frame counters (``device_count``). ``chained_timeit`` times calls as
+per-frame counters (``device_count``). The host tally (``tally``,
+``tally_max``, ``keep``; read by ``tallies`` and ``kept``) is what the
+host counts as it enqueues device work, always on: kernel launches,
+solver calls, collective payloads; a captured graph ``record``s it and
+each replay ``replay``s the record. ``chained_timeit`` times calls as
 the host issues them, ``device_timeit`` a chain of calls captured in one
 CUDA graph (``Chain``), both with CUDA events ending in a synchronize;
 ``device_reading`` reads one call's kernels under ``torch.profiler``;
@@ -24,6 +28,7 @@ import ctypes
 import os
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -310,6 +315,77 @@ class _Quiet:
 QUIET = _Quiet()
 
 
+# ---------------------------------------------------------------------------
+# The host tally
+# ---------------------------------------------------------------------------
+
+class Record(NamedTuple):
+    """Host tallies by name: ``counts`` (``tally``), ``largest``
+    (``tally_max``) and ``kept`` tensors (``keep``)."""
+
+    counts: dict
+    largest: dict
+    kept: dict
+
+
+# The host tally: what the host counted as it enqueued device work, under
+# dotted names written where the counting happens (``pose_only.launches``,
+# ``collectives.bytes``). Python runs while a graph is captured, never
+# while it replays: a capture ``record``s its tallies, a replay
+# ``replay``s them.
+_tally = Record({}, {}, {})
+
+
+def tally(name: str, n: int = 1) -> None:
+    """Count ``n`` more under ``name``."""
+    c = _tally.counts
+    c[name] = c.get(name, 0) + n
+
+
+def tally_max(name: str, v: int) -> None:
+    """Keep the largest ``v`` under ``name``."""
+    m = _tally.largest
+    m[name] = max(m.get(name, v), v)
+
+
+def keep(name: str, x: torch.Tensor) -> None:
+    """Keep ``x`` under ``name``: a launch's device header, which the next
+    launch of its kind replaces."""
+    _tally.kept[name] = x
+
+
+def tallies() -> dict:
+    """A copy of the counts and the largest values, name -> int."""
+    return {**_tally.counts, **_tally.largest}
+
+
+def kept(name: str):
+    """The tensor last kept under ``name`` (None if none)."""
+    return _tally.kept.get(name)
+
+
+def record(run):
+    """``run()`` from an empty tally, the tally set back as it was after
+    it. Returns (run's result, the ``Record`` of what it tallied and
+    kept)."""
+    global _tally
+    saved, _tally = _tally, Record({}, {}, {})
+    try:
+        return run(), _tally
+    finally:
+        _tally = saved
+
+
+def replay(rec: Record) -> None:
+    """Add a ``record``'s counts, take its largest values where larger,
+    and keep its tensors."""
+    for name, n in rec.counts.items():
+        tally(name, n)
+    for name, v in rec.largest.items():
+        tally_max(name, v)
+    _tally.kept.update(rec.kept)
+
+
 class Stamps:
     """The stage stamps and counters of one captured frame kind: ``buf``, a
     static int64 buffer of ``SLOTS`` on the device (no part of the packed
@@ -474,15 +550,14 @@ class Chain:
     chain where the last one ended, and the first replay leaves in
     ``carry`` what k eager calls from ``carry0`` return.
 
-    The wrappers' launch counts (and handles) are Python statements that
-    run at capture only: the capture leaves them as it found them, and a
-    replay adds nothing (a timing replays many times). A step that cannot
+    The host tally (``tally``, ``keep``) is Python that runs at capture
+    only: the capture leaves it as it found it (``record``), and a replay
+    adds nothing (a timing replays many times). A step that cannot
     be captured (it synchronises the host, or reads a device value)
     raises, naming the step; nothing falls back to eager calls."""
 
     def __init__(self, step, carry0, k: int = 8, name: str = None):
         _require_cuda("device_timeit")
-        from nrslam_tpu_torch.slam import frame_graph
         from nrslam_tpu_torch.utils import tree
 
         self.name = name or getattr(step, "__name__", repr(step))
@@ -495,8 +570,8 @@ class Chain:
                              f"lie on one CUDA device, got {dev}")
         self.buf = tree.pack(carry0, packing)
         self.carry = tree.unpack(self.buf, packing)
-        saved = frame_graph.wrapper_globals()
-        try:
+
+        def capture():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -517,8 +592,8 @@ class Chain:
                     f"device_timeit: step {self.name!r} cannot be captured "
                     f"in a CUDA graph (does it synchronise the host?): {e}"
                 ) from e
-        finally:
-            frame_graph.set_wrapper_globals(saved)
+
+        record(capture)
 
     def replay(self) -> None:
         self.graph.replay()

@@ -24,7 +24,7 @@ from nrslam_tpu.slam import system as jsys
 from nrslam_tpu_torch import bench_problem
 from nrslam_tpu_torch.slam import frame_graph
 from nrslam_tpu_torch.slam import system as tsys
-from nrslam_tpu_torch.utils import tree
+from nrslam_tpu_torch.utils import profiler, tree
 
 from torch_parity import jax_bench_problem, np_of, quat_err, to_port
 from torch_parity import pallas_ba_reference  # noqa: F401 (a fixture)
@@ -54,7 +54,7 @@ class EagerFrameGraph(frame_graph.FrameGraph):
     def _build(self):
         for kf in (False, True):
             self._graphs[kf] = _Replay(self, kf)
-            self.launches[kf], self._handles[kf] = {}, {}
+            self.recorded[kf] = profiler.Record({}, {}, {})
 
 
 def _bench(P=128):
@@ -190,6 +190,59 @@ def test_lost_state_comes_out_unchanged(kf):
     s, r = fg.step(lost, frames[1], mask, kf)
     _assert_same(s, lost, "step")
     assert int(r.n_tracked_3d) == 0 and bool(r.lost)
+
+
+class _NoGraph:
+    """A graph whose replay runs nothing (a replay runs no Python)."""
+
+    def replay(self):
+        pass
+
+
+class _TallyingGraphs(frame_graph.KindGraphs):
+    """``KindGraphs`` over one CPU vector whose body tallies under names no
+    module lists anywhere; the "capture" runs the body under
+    ``profiler.record``, as ``KindGraphs._build`` records a capture."""
+
+    def _check(self):
+        pass
+
+    def _body(self, views, kf):
+        views[0].add_(1.0)
+        profiler.tally("unlisted_kernel.launches", 2 if kf else 1)
+        profiler.tally_max("unlisted_kernel.largest", 7)
+        profiler.keep("unlisted_kernel.last_work", views[0][:1].clone())
+
+    def _build(self):
+        for kf in (False, True):
+            _, self.recorded[kf] = profiler.record(
+                lambda: self._body(self.views, kf))
+            self._graphs[kf] = _NoGraph()
+
+
+def test_replay_adds_any_tally_its_capture_recorded():
+    """A tally name that nothing declares ahead, counted inside a capture,
+    is recorded there (the tally left as found) and added by each replay,
+    its kept tensor set: a new kernel's counts need no entry in
+    slam/frame_graph.py."""
+    gray = torch.zeros((4, 4))
+    mask = torch.ones((4, 4), dtype=torch.bool)
+    found = profiler.tallies()
+    fg = _TallyingGraphs((torch.zeros(3),), gray, mask)
+    assert profiler.tallies() == found
+    assert profiler.kept("unlisted_kernel.last_work") is None
+    assert fg.recorded[False].counts == {"unlisted_kernel.launches": 1}
+    assert fg.recorded[True].counts == {"unlisted_kernel.launches": 2}
+    state = torch.zeros(3)
+    for kf in (False, True, True):
+        state = fg._replay(state, gray, mask, kf)[0]
+    after = profiler.tallies()
+    assert {k: v - found.get(k, 0) for k, v in after.items()
+            if v != found.get(k, 0)} == {"unlisted_kernel.launches": 5,
+                                         "unlisted_kernel.largest": 7}
+    assert fg.replays == 3
+    assert profiler.kept("unlisted_kernel.last_work") is \
+        fg.recorded[True].kept["unlisted_kernel.last_work"]
 
 
 def test_frame_graph_raises_on_cpu_tensors():

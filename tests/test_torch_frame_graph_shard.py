@@ -12,8 +12,8 @@ keypoints and 96 slots used, over a non-keyframe and a keyframe (new
 features in the free slots): every step bit for bit the eager
 ``frame_step_sharded`` on the same ranks (shard, result, collectives'
 payloads and bytes), a snapshot unchanged by later steps, the build
-leaving the counted globals as it found them and each step adding what
-its capture recorded, and the host-side checksum raising on every rank
+leaving the host tally as it found it and each step adding what its
+capture recorded, and the host-side checksum raising on every rank
 when one rank's replicated leaf differs. The gathered state after the two
 frames is held to the JAX package's ``_fused_frame_impl`` on the same
 state sharded over ``pt`` on 8 virtual devices under
@@ -28,9 +28,7 @@ import torch
 from nrslam_tpu_torch import convert
 from nrslam_tpu_torch.parallel import (dryrun, frame_graph_shard, sharding,
                                        tracking_shard)
-from nrslam_tpu_torch.slam import frame_graph
-from nrslam_tpu_torch.solver import pose_deformation_cuda, pose_only_cuda
-from nrslam_tpu_torch.utils import tree
+from nrslam_tpu_torch.utils import profiler, tree
 
 torch.set_num_threads(1)
 
@@ -41,58 +39,28 @@ KEYFRAMES = (False, True)
 
 class _Replay:
     """What a replay of the graph of kind ``kf`` runs: the captured body
-    on the static buffers, the counted globals untouched (a replay runs no
+    on the static buffers, the host tally untouched (a replay runs no
     Python)."""
 
     def __init__(self, fg, kf):
         self.fg, self.kf = fg, kf
 
     def replay(self):
-        frame_graph.record(lambda: self.fg._body(self.fg.views, self.kf))
+        profiler.record(lambda: self.fg._body(self.fg.views, self.kf))
 
 
 class EagerShardFrameGraph(frame_graph_shard.ShardFrameGraph):
     """``ShardFrameGraph`` with its two graphs replaced by ``_Replay``: the
-    build runs each kind once on a scratch copy under ``frame_graph.record``
+    build runs each kind once on a scratch copy under ``profiler.record``
     (what a capture records) and no check of the device or the backend."""
 
     def _build(self):
         for kf in (False, True):
             scratch = tree.unpack(self.buf.clone(), self.packing)
-            _, self.launches[kf], self._handles[kf] = frame_graph.record(
+            _, self.recorded[kf] = profiler.record(
                 lambda: self._body(scratch, kf))
             self._graphs[kf] = _Replay(self, kf)
             self.capture_s[kf] = self.pool_bytes[kf] = 0
-
-
-def _counts():
-    return {k: v for k, v in frame_graph.wrapper_globals().items()
-            if not frame_graph.is_handle(k)}
-
-
-def _moved(before, after) -> dict:
-    """The counts that moved from ``before`` to ``after``: (payloads,
-    bytes) of a traffic, a dict's phases, an int."""
-    out = {}
-    for k, a in after.items():
-        b = before[k]
-        if k[1] == "traffic":
-            d = (a[0] - b[0], a[1] - b[1])
-        elif isinstance(a, dict):
-            d = {p: a[p] - b[p] for p in a if a[p] != b[p]}
-        else:
-            d = a - b
-        if any(d) if isinstance(d, (tuple, dict)) else d:
-            out[k] = d
-    return out
-
-
-def _recorded(counts: dict) -> dict:
-    """A capture's record in ``_moved``'s form."""
-    zero = {k: ((0, 0, 0) if k[1] == "traffic" else
-                dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
-            for k, v in counts.items()}
-    return _moved(zero, counts)
 
 
 def _clone(t):
@@ -116,35 +84,47 @@ def rank_replays(mesh, state, frames, mask, cam, config, keyframes):
     except ValueError as e:
         out["refused"] = str(e)
 
-    # Counts that are not zero, so "as found" is not "zero".
-    pose_only_cuda.shard_launches["step"] += 5
-    pose_deformation_cuda.shard_calls += 2
-    sharding.traffic.add(torch.zeros(3))
-    tracking_shard.traffic.add(torch.zeros(7, dtype=torch.int64))
-    found = _counts()
+    # Tallies that are not zero, so "as found" is not "empty".
+    profiler.tally("pose_only_shard.step", 5)
+    profiler.tally("pose_deformation_shard.calls", 2)
+    profiler.tally("collectives.gather.bytes", 56)
+    profiler.tally_max("collectives.largest", 3)
+    handle = torch.zeros(1)
+    profiler.keep("pose_only_shard.last_lm_steps", handle)
+    found = profiler.tallies()
     fg = EagerShardFrameGraph(local, frames[0], mask, cam, config, mesh)
-    out["build_kept"] = _counts() == found
-    out["recorded"] = {kf: _recorded(fg.launches[kf]) for kf in (False, True)}
+    out["build_kept"] = (profiler.tallies() == found and profiler.kept(
+        "pose_only_shard.last_lm_steps") is handle)
+    out["recorded"] = {kf: (fg.recorded[kf].counts, fg.recorded[kf].largest)
+                       for kf in (False, True)}
     for k in ("same", "adds_recorded", "eager_moved", "snapshot_kept",
               "not_the_buffer", "n_tracked_3d", "states"):
         out[k] = []
     axes = tracking_shard.state_axes(config, tuple(mask.shape))._replace(
         refs=None)
-    eager, stepped, kept = local, (local, None), None
+    eager, stepped, snap = local, (local, None), None
     for f, kf in zip(frames, keyframes):
-        c0 = _counts()
-        e, er = tracking_shard.frame_step_sharded(mesh, eager, f, mask, cam,
-                                                  config, kf)
-        c1 = _counts()
+        (e, er), rec = profiler.record(
+            lambda: tracking_shard.frame_step_sharded(mesh, eager, f, mask,
+                                                      cam, config, kf))
+        profiler.replay(rec)
+        before = profiler.tallies()
         last = stepped
         stepped = fg.step(last[0], f, mask, kf)
-        c2 = _counts()
-        out["eager_moved"].append(_moved(c0, c1))
-        out["adds_recorded"].append(_moved(c1, c2) == out["recorded"][kf])
+        after = profiler.tallies()
+        out["eager_moved"].append((rec.counts, rec.largest))
+        # The eager frame set the largest payload already: only the
+        # counts move.
+        added = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+        out["adds_recorded"].append(
+            added == fg.recorded[kf].counts
+            and all(profiler.kept(k) is x
+                    for k, x in fg.recorded[kf].kept.items()))
         out["same"].append(dryrun._bits_equal(stepped, (e, er)))
-        if kept is not None:
-            out["snapshot_kept"].append(dryrun._bits_equal(last, kept))
-        kept = _clone(stepped)
+        if snap is not None:
+            out["snapshot_kept"].append(dryrun._bits_equal(last, snap))
+        snap = _clone(stepped)
         out["not_the_buffer"].append(all(
             x.untyped_storage().data_ptr()
             != fg.buf.untyped_storage().data_ptr()
@@ -197,43 +177,51 @@ def replays(problem, tmp_path_factory):
 
 
 def test_record_and_add_recorded():
-    """``record`` runs a function with every counted global from zero and
-    sets them back; ``add_recorded`` adds its counts (a dict by phase in
-    place, a traffic's largest payload the larger) and sets its handles."""
-    phases = pose_only_cuda.shard_launches
-    found = _counts()
-    handle = pose_only_cuda.shard_last_steps
+    """``profiler.record`` runs a function from an empty host tally and
+    sets the tally back as it was, also when the function raises;
+    ``profiler.replay`` adds its counts, takes its largest values where
+    larger and keeps its tensors."""
+    profiler.tally("pose_only_shard.partials", 2)
+    profiler.tally_max("collectives.largest", 4)
+    handle = torch.zeros(1)
+    profiler.keep("pose_only_shard.last_lm_steps", handle)
+    found = profiler.tallies()
 
     def run():
-        phases["partials"] += 3
-        pose_only_cuda.shard_calls += 1
-        sharding.traffic.add(torch.zeros(5))
-        pose_only_cuda.shard_last_steps = torch.ones(1)
-        return "ran"
+        empty = (profiler.tallies() == {}
+                 and profiler.kept("pose_only_shard.last_lm_steps") is None)
+        profiler.tally("pose_only_shard.partials", 3)
+        profiler.tally("pose_only_shard.calls")
+        profiler.tally_max("collectives.largest", found[
+            "collectives.largest"] + 5)
+        profiler.tally_max("collectives.largest", 1)
+        profiler.keep("pose_only_shard.last_lm_steps", torch.ones(1))
+        return empty
 
-    out, counts, handles = frame_graph.record(run)
-    assert out == "ran" and _counts() == found
-    assert pose_only_cuda.shard_last_steps is handle
-    assert pose_only_cuda.shard_launches is phases
-    assert counts[("pose_only_cuda", "shard_launches")]["partials"] == 3
-    assert counts[("pose_only_cuda", "shard_calls")] == 1
-    assert counts[("sharding", "traffic")] == (1, 20, 5)
-    assert ("pose_only_cuda", "launches") not in counts
-    assert list(handles) == [("pose_only_cuda", "shard_last_steps")]
+    empty, rec = profiler.record(run)
+    assert empty and profiler.tallies() == found
+    assert profiler.kept("pose_only_shard.last_lm_steps") is handle
+    assert rec.counts == {"pose_only_shard.partials": 3,
+                          "pose_only_shard.calls": 1}
+    assert rec.largest == {"collectives.largest":
+                           found["collectives.largest"] + 5}
     for _ in range(2):
-        frame_graph.add_recorded(counts, handles)
-    assert _moved(found, _counts()) == {
-        ("pose_only_cuda", "shard_launches"): {"partials": 6},
-        ("pose_only_cuda", "shard_calls"): 2,
-        ("sharding", "traffic"): (2, 40)}
-    assert sharding.traffic.max_elements == max(found[("sharding",
-                                                       "traffic")][2], 5)
-    assert pose_only_cuda.shard_last_steps is handles[
-        ("pose_only_cuda", "shard_last_steps")]
-    assert pose_only_cuda.shard_launches is phases
-    frame_graph.set_wrapper_globals(found)
-    pose_only_cuda.shard_last_steps = handle
-    assert _counts() == found
+        profiler.replay(rec)
+    after = profiler.tallies()
+    assert {k: v - found.get(k, 0) for k, v in after.items()
+            if v != found.get(k, 0)} == {
+        "pose_only_shard.partials": 6, "pose_only_shard.calls": 2,
+        "collectives.largest": 5}
+    assert profiler.kept("pose_only_shard.last_lm_steps") is rec.kept[
+        "pose_only_shard.last_lm_steps"]
+
+    def fail():
+        profiler.tally("pose_only_shard.calls")
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        profiler.record(fail)
+    assert profiler.tallies() == after
 
 
 def test_constructor_raises_without_nccl(replays):
@@ -262,19 +250,20 @@ def test_replays_match_eager_bit_for_bit(replays):
 
 
 def test_build_keeps_counts_and_steps_add_recorded(replays):
-    """The build leaves the counted globals as it found them (not zero),
-    each step adds what its kind's capture recorded, and the record holds
-    the frame's collectives (the state gather's and the partitioned
-    solves' payloads; the window BA's on the keyframe)."""
+    """The build leaves the host tally as it found it (not empty), each
+    step adds what its kind's capture recorded and keeps its tensors, and
+    the record holds the frame's collectives (the state gather's and the
+    partitioned solves' payloads; the window BA's on the keyframe)."""
     for out in replays:
         assert out["build_kept"]
         assert out["adds_recorded"] == [True] * len(KEYFRAMES)
-        rec = out["recorded"]
+        counts = {kf: out["recorded"][kf][0] for kf in (False, True)}
         for kf in (False, True):
-            for owner in ("sharding", "tracking_shard", "solve_shard"):
-                assert rec[kf][(owner, "traffic")][0] > 0, (kf, owner)
-        assert (rec[True][("solve_shard", "traffic")][0]
-                > rec[False][("solve_shard", "traffic")][0])
+            for name in ("collectives", "collectives.gather",
+                         "collectives.solve"):
+                assert counts[kf][f"{name}.payloads"] > 0, (kf, name)
+        assert (counts[True]["collectives.solve.payloads"]
+                > counts[False]["collectives.solve.payloads"])
 
 
 def test_snapshots_are_independent(replays):

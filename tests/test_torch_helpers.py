@@ -1,13 +1,18 @@
 """Port parity of the small public helpers: ``graph.neighborhood_rings``,
 the SE(3) interpolation and matrix helpers, ``stats.CHI2_95``,
 ``core.inv_spd6``, the camera's intrinsics accessors and
-``native_loader.build``, each against the JAX package on the CPU.
+``native_loader.build``, each against the JAX package on the CPU; and the
+kernels' camera-kind numbers (``kernels.CAMERA_KINDS``) against
+csrc/common.cuh's.
 
 Tolerances: 1e-5 on float32 geometry (both sides evaluate the same
 formulas; libm rounding differs by a few ulp); 1e-5 relative on the 6x6
 inverse of a matrix with condition number below 1e3; masks, tables and
 accessors equal.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +24,7 @@ from nrslam_tpu.geometry import se3 as jse3
 from nrslam_tpu.slam import graph as jgraph
 from nrslam_tpu.solver import core as jcore
 from nrslam_tpu.utils import stats as jstats
+from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras as tcam
 from nrslam_tpu_torch.geometry import se3 as tse3
 from nrslam_tpu_torch.slam import graph as tgraph
@@ -143,6 +149,23 @@ def test_camera_intrinsics_match_jax(kind):
         ct = tcam.kannala_brandt8(*args, device="cpu")
     for name in ("fx", "fy", "cx", "cy"):
         assert float(getattr(ct, name)) == float(getattr(cj, name)), name
+
+
+@pytest.mark.parametrize("kind, constant", [(tcam.PINHOLE, "kPinhole"),
+                                            (tcam.KB8, "kKB8")])
+def test_camera_kinds_match_common_cuh(kind, constant):
+    """``kernels.CAMERA_KINDS`` numbers each kind as csrc/common.cuh's
+    constant does, and ``CAMERA_PARAMS`` counts the parameters its
+    constructor makes: a change made on one side alone fails."""
+    src = (Path(kernels.SOURCE_DIR) / "common.cuh").read_text()
+    found = re.findall(rf"constexpr int {constant} = (\d+);", src)
+    assert found and kernels.CAMERA_KINDS[kind] == int(found[0])
+    assert set(kernels.CAMERA_KINDS) == set(kernels.CAMERA_PARAMS) \
+        == {tcam.PINHOLE, tcam.KB8}
+    make = {tcam.PINHOLE: lambda: tcam.pinhole(1.0, 1.0, 0.0, 0.0, "cpu"),
+            tcam.KB8: lambda: tcam.kannala_brandt8(1.0, 1.0, 0.0, 0.0, 0.0,
+                                                   0.0, 0.0, 0.0, "cpu")}
+    assert make[kind]().params.shape == (kernels.CAMERA_PARAMS[kind],)
 
 
 def test_native_loader_build_matches_jax(tmp_path):

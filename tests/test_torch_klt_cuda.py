@@ -18,6 +18,7 @@ import torch
 from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.datasets import synthetic
 from nrslam_tpu_torch.ops import klt, klt_cuda
+from nrslam_tpu_torch.utils import profiler
 
 torch.set_num_threads(1)
 
@@ -139,10 +140,10 @@ def test_launch_raises_on_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(kernels, "library", fail)
     pyr, refs, seeds, status, cfg = _problem()
-    before = klt_cuda.launches
+    before = profiler.tallies()
     with pytest.raises(ValueError, match="CUDA"):
         klt_cuda.track(pyr, refs, seeds, status, cfg, 0.7)
-    assert klt_cuda.launches == before
+    assert profiler.tallies() == before
 
 
 @pytest.mark.parametrize("levels", [5, 2], ids=["track", "point_reuse"])

@@ -27,7 +27,8 @@ computed the same state from the gathered arrays (a checksum compared
 across ranks before the rank keeps its rows), so a frame that returns has
 passed that check. The graph stays row-sharded: every rank's graph leaves
 are ``[P / n, P]`` after every frame, and no collective of a frame carries
-a payload of ``P * P / n`` elements (``sharding.traffic``).
+a payload of ``P * P / n`` elements (the host tally's
+``collectives.largest``).
 """
 
 import jax

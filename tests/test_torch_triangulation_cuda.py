@@ -20,6 +20,7 @@ from nrslam_tpu_torch import kernels
 from nrslam_tpu_torch.geometry import cameras, se3
 from nrslam_tpu_torch.solver import deformable_triangulation as dt
 from nrslam_tpu_torch.solver import deformable_triangulation_cuda as dtc
+from nrslam_tpu_torch.utils import profiler
 
 torch.set_num_threads(1)
 
@@ -157,10 +158,10 @@ def test_launch_raises_on_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(kernels, "library", fail)
     cam, inputs, poses = _problem()
-    before = dtc.launches
+    before = profiler.tallies()
     with pytest.raises(ValueError, match="CUDA"):
         dtc.triangulate(cam, inputs, poses, 0.004)
-    assert dtc.launches == before
+    assert profiler.tallies() == before
 
 
 @pytest.mark.parametrize("kind", [cameras.PINHOLE, cameras.KB8])
