@@ -7,7 +7,8 @@ System three ways, the card with the kernels, the card with the plain
 drivers, the CPU, and prints each one's accuracy and how far their
 trajectories drift apart; ``python3 chip_smoke.py --klt`` only builds the
 kernels and runs phase 3 [klt], ``--tri`` only the build and phase 3
-[tri]; ``python3 chip_smoke.py --wrappers TREE`` only
+[tri], ``--initgraph`` only the build and phase 8b [initgraph];
+``python3 chip_smoke.py --wrappers TREE`` only
 times the pose-only, joint and BA wrappers of the package in TREE, e.g.
 another commit's ``git archive``, and its partitioned joint and BA routes
 by phase: measurements, not checks.)
@@ -144,6 +145,13 @@ prints its seconds):
      features on 640x480 frames: success within its 8 frames, ms per init
      frame; the pose-only kernel against plain at the same-device gate on
      the inputs of the first two-view refinement's three solves (P = 4,000);
+  8b. [initgraph]: slam/init_graph.InitGraphs against the eager initializer
+     on the same frames and draws over one blackout cycle of the relost
+     cell (4,000 features, 320x240 KB8), through its success frame: state,
+     pyramid and result equal bit for bit on every init frame, the same
+     host tally but for the graphs' replay counts, one attempt replayed a
+     frame; prints the segments' nodes, build and capture seconds, pool,
+     replays and ms per init frame both ways;
   9. [disk-hamlyn], the disk path at full width: datasets/hamlyn_export
      writes 60 stereo frames of the 640x480 scene (deformation 0.02) as
      PNGs, then ``python -m nrslam_tpu_torch.apps.run_slam --dataset
@@ -1952,6 +1960,133 @@ def init4000_phase(dev, card: str, rec):
         rec["pose_only"]["err"] = max(rec["pose_only"]["err"], err)
 
 
+# [initgraph]: the cell it runs, the stream frame of its first reset (the
+# last visible frame before the first blackout) and its frame limit.
+INITGRAPH_CELL = "kb8-320-p384.relost"
+INITGRAPH_FIRST = 115
+INITGRAPH_FRAMES = 40
+
+
+def initgraph_phase(dev, card: str):
+    """[initgraph]: slam/init_graph.InitGraphs against the eager
+    initializer (``reset``, ``init_step``) on the card, on the same frames
+    and the System's draws, over one blackout cycle of the relost cell
+    (4,000 features, 320x240 KB8): the first reset on the last visible
+    frame, the black frames (attempts that reset), then the visible frames
+    until the success frame (its refinement). On every init frame the
+    state, the pyramid and the result (success, Tcw, landmarks, point_ok,
+    keypoints, ids) must be equal bit for bit, the host tally the same but
+    for the graphs' own counts, and one attempt replayed a frame; prints
+    each segment's nodes, build and capture seconds, the replays, the
+    tallies and ms per init frame both ways."""
+    from slambench import check, scene
+    from slambench import run as bench_run
+    from nrslam_tpu_torch.ops import klt
+    from nrslam_tpu_torch.slam import init_graph, initializer, system
+    from nrslam_tpu_torch.utils import profiler, tree
+
+    _, cell, cfg, mix, _ = bench_run.load_cell(INITGRAPH_CELL)
+    sysm = bench_run.program_setup(cfg, dev)
+    cam, kcfg, icfg = sysm.cam, sysm.config.klt_config, sysm.init_config
+    ref_cam, _, _ = check.reference_setup(cfg, dev)
+    h, w = cfg["camera"]["height"], cfg["camera"]["width"]
+    mask = torch.ones((h, w), dtype=torch.bool, device=dev)
+
+    def gray(f):
+        if scene.is_black(mix, f):
+            return torch.zeros((h, w), device=dev)
+        return torch.round(scene.render(f, ref_cam, h, w, mix)[0])
+
+    def bits(t):
+        return [x.contiguous().reshape(-1).view(torch.uint8)
+                for x in tree.leaves(t)]
+
+    def equal(a, b):
+        la, lb = bits(a), bits(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+    def timed(run):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out, rec = profiler.record(run)
+        torch.cuda.synchronize(dev)
+        return out, rec.counts, 1e3 * (time.perf_counter() - t0)
+
+    f = INITGRAPH_FIRST
+    g0 = gray(f)
+    t0 = time.perf_counter()
+    graphs, built, _ = timed(lambda: init_graph.InitGraphs(g0, mask, cam,
+                                                           kcfg, icfg))
+    build_s = time.perf_counter() - t0
+    st = initializer.reset(klt.build_pyramid(g0, kcfg), mask, 0, kcfg,
+                           icfg)
+    graphs.pyramid(g0, mask)
+    gst = graphs.reset()
+    if not equal(st, gst):
+        raise AssertionError("[initgraph] the first reset differs")
+    ms = {"eager": [], "graph": []}
+    tallies = {"eager": {}, "graph": {}}
+    success_at, kinds = None, []
+    for count in range(INITGRAPH_FRAMES):
+        f += 1
+        g = gray(f)
+        perm, gumbel = system.ransac_draws(icfg, sysm.seed, count, dev)
+        def eager():
+            return initializer.init_step(st, klt.build_pyramid(g, kcfg), mask,
+                                         perm, gumbel, cam, kcfg, icfg)
+
+        def replayed():
+            graphs.pyramid(g, mask)
+            return graphs.step(gst, perm, gumbel)
+
+        (st, res), te, me = timed(eager)
+        (gst, gres, gpyr), tg, mg = timed(replayed)
+        for name, t in (("eager", te), ("graph", tg)):
+            for k, v in t.items():
+                tallies[name][k] = tallies[name].get(k, 0) + v
+        ms["eager"].append(me)
+        ms["graph"].append(mg)
+        same = (equal(st, gst), equal(res, gres),
+                equal(klt.build_pyramid(g, kcfg), gpyr))
+        kinds.append("black" if scene.is_black(mix, f) else "seen")
+        if not all(same):
+            raise AssertionError(f"[initgraph] frame {f}: state, result, "
+                                 f"pyramid equal {same}")
+        if bool(res.success):
+            success_at = f
+            break
+    own = {k: v for k, v in tallies["graph"].items()
+           if k.startswith("init_graph.")}
+    rest = {k: v for k, v in tallies["graph"].items() if k not in own}
+    n = len(ms["eager"])
+    print(f"[initgraph] {cell['name']} on {card}: InitGraphs built in "
+          f"{build_s:.3f} s (captures "
+          + ", ".join(f"{k} {v:.3f}" for k, v in graphs.capture_s.items())
+          + f" s; shared pool {sum(graphs.pool_bytes.values())} B; buffer "
+          f"{graphs.buf.numel()} B); nodes {graphs.nodes}; host tally of "
+          f"the build {built}")
+    print(f"[initgraph] stream frames {INITGRAPH_FIRST} (first reset) to "
+          f"{f}: {n} init frames ({' '.join(kinds)}), success at "
+          f"{success_at}; state, pyramid and result equal bit for bit on "
+          f"every frame; replays {own}; tally eager {tallies['eager']}, "
+          f"graph {rest}")
+    print(f"[initgraph] ms per init frame (host clock to a synchronize; "
+          f"draws outside): eager median {statistics.median(ms['eager']):.3f}"
+          f" [{', '.join(f'{x:.2f}' for x in ms['eager'])}], graph median "
+          f"{statistics.median(ms['graph']):.3f} "
+          f"[{', '.join(f'{x:.2f}' for x in ms['graph'])}]")
+    if success_at is None:
+        raise AssertionError(f"[initgraph] no success in "
+                             f"{INITGRAPH_FRAMES} frames")
+    if rest != tallies["eager"] or built:
+        raise AssertionError(f"[initgraph] tallies differ: eager "
+                             f"{tallies['eager']}, graph {rest}, build "
+                             f"{built}")
+    if own.get("init_graph.replays.attempt_a") != n:
+        raise AssertionError(f"[initgraph] {own} replays for {n} frames")
+
+
 def run_system(dev, n: int = 60):
     """System.track_image_with_depth from frame 0 on the synthetic sequence
     at 640x480, P=768, 256 new keypoints, default initializer, on `dev`.
@@ -1963,7 +2098,6 @@ def run_system(dev, n: int = 60):
     from nrslam_tpu_torch.eval import metrics
     from nrslam_tpu_torch.slam import system
     from nrslam_tpu_torch.slam.state import Config
-    from nrslam_tpu_torch.solver import pose_only
     from nrslam_tpu_torch.utils import tree
 
     scene = synthetic.SceneConfig(height=480, width=640, deform_amp=0.02)
@@ -1975,37 +2109,28 @@ def run_system(dev, n: int = 60):
     reset_launches()
     ms = {"init": [], "keyframe": [], "non-keyframe": []}
     est, gt, poses, init_frame, out = [], [], {}, None, {}
-    refine_inputs = []
-    solve = pose_only.camera_pose_optimization
-
-    def recording_solve(cam, T0, X, obs, valid, *args):
-        if sysm.status != system.TRACKING:
-            refine_inputs.append((cam, T0, X, obs, valid))
-        return solve(cam, T0, X, obs, valid, *args)
-
-    pose_only.camera_pose_optimization = recording_solve
-    try:
-        for i in range(n):
-            gray, depth, T_gt = seq.get_frame(i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            was_init = sysm.status != system.TRACKING
-            out = sysm.track_image_with_depth(gray, depth)
-            torch.cuda.synchronize()
-            dt_ms = 1e3 * (time.perf_counter() - t0)
-            kind = "init" if was_init else (
-                "keyframe" if out["keyframe"] else "non-keyframe")
-            ms[kind].append(dt_ms)
-            if sysm.status == system.TRACKING:
-                # Values of the snapshot System returned (on the card a
-                # copy of the frame graph's buffer), cloned so that the
-                # rest of that copy is freed.
-                init_frame = i if init_frame is None else init_frame
-                est.append(tree.tree_map(torch.clone, sysm.state.Tcw))
-                gt.append(T_gt)
-                poses[i] = sysm.state.Tcw.t.cpu()
-    finally:
-        pose_only.camera_pose_optimization = solve
+    init_grays = []
+    for i in range(n):
+        gray, depth, T_gt = seq.get_frame(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        was_init = sysm.status != system.TRACKING
+        if was_init:
+            init_grays.append(gray)
+        out = sysm.track_image_with_depth(gray, depth)
+        torch.cuda.synchronize()
+        dt_ms = 1e3 * (time.perf_counter() - t0)
+        kind = "init" if was_init else (
+            "keyframe" if out["keyframe"] else "non-keyframe")
+        ms[kind].append(dt_ms)
+        if sysm.status == system.TRACKING:
+            # Values of the snapshot System returned (on the card a
+            # copy of the frame graph's buffer), cloned so that the
+            # rest of that copy is freed.
+            init_frame = i if init_frame is None else init_frame
+            est.append(tree.tree_map(torch.clone, sysm.state.Tcw))
+            gt.append(T_gt)
+            poses[i] = sysm.state.Tcw.t.cpu()
     return {
         "status": sysm.status, "tracking": sysm.status == system.TRACKING,
         "ms": ms, "init_frame": init_frame, "poses": poses,
@@ -2016,8 +2141,48 @@ def run_system(dev, n: int = 60):
             torch.isfinite(sysm.state.positions).all()),
         "launches": launch_counts(),
         "refines": tallied_since_reset().get("initializer.refines", 0),
-        "refine_inputs": refine_inputs,
+        "refine_inputs": eager_refine_inputs(sysm, init_grays),
         "replays": replays(sysm)}
+
+
+def eager_refine_inputs(sysm, grays) -> list:
+    """The inputs of the pose-only solves of every two-view refinement of
+    the System's init over its init frames ``grays``: the eager
+    initializer (``reset``, ``init_step``) run again on them with the
+    System's draws, its host tally dropped. On the card the System replays
+    its init (slam/init_graph.py), which calls no Python, and gives these
+    inputs bit for bit ([initgraph])."""
+    from nrslam_tpu_torch.ops import klt
+    from nrslam_tpu_torch.slam import initializer
+    from nrslam_tpu_torch.solver import pose_only
+    from nrslam_tpu_torch.utils import profiler
+
+    kcfg, icfg = sysm.config.klt_config, sysm.init_config
+    grays = [sysm._preprocess(g) for g in grays]
+    mask = torch.ones(grays[0].shape, dtype=torch.bool,
+                      device=grays[0].device)
+    inputs = []
+    solve = pose_only.camera_pose_optimization
+
+    def recording_solve(cam, T0, X, obs, valid, *args):
+        inputs.append((cam, T0, X, obs, valid))
+        return solve(cam, T0, X, obs, valid, *args)
+
+    def run():
+        st = initializer.reset(klt.build_pyramid(grays[0], kcfg), mask, 0,
+                               kcfg, icfg)
+        for count, gray in enumerate(grays[1:]):
+            perm, gumbel = sysm._draws(count)
+            st, _ = initializer.init_step(st, klt.build_pyramid(gray, kcfg),
+                                          mask, perm, gumbel, sysm.cam, kcfg,
+                                          icfg)
+
+    pose_only.camera_pose_optimization = recording_solve
+    try:
+        profiler.record(run)
+    finally:
+        pose_only.camera_pose_optimization = solve
+    return inputs
 
 
 def replays(sysm) -> int:
@@ -2863,6 +3028,7 @@ def run_phases(phase, dev, card: str, world, tmp: str):
     phase("pose-only at the init refine", refine_kernel_check, refine_inputs,
           rec)
     phase("init4000", init4000_phase, dev, card, rec)
+    phase("initgraph", initgraph_phase, dev, card)
     phase("disk-hamlyn", disk_hamlyn, dev, card)
     phase("disk-simulation", disk_simulation, dev, card)
     phase("collapse", collapse_phase, dev, card)
@@ -2876,10 +3042,12 @@ def main():
     witness = args == ["--witness"]
     klt_only = args == ["--klt"]
     tri_only = args == ["--tri"]
+    initgraph_only = args == ["--initgraph"]
     wrappers = len(args) == 2 and args[0] == "--wrappers"
-    if args and not (witness or klt_only or tri_only or wrappers):
+    if args and not (witness or klt_only or tri_only or initgraph_only
+                     or wrappers):
         raise SystemExit("usage: python3 chip_smoke.py [--witness | --klt | "
-                         "--tri | --wrappers TREE]")
+                         "--tri | --initgraph | --wrappers TREE]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     # cuBLAS deterministic too where [parallel]'s plain-driver process turns
@@ -2938,6 +3106,9 @@ def main():
     if tri_only:
         print(json.dumps({"deformable_triangulation": phase("tri", tri_phase,
                                                             dev)}))
+        return
+    if initgraph_only:
+        phase("initgraph", initgraph_phase, dev, card)
         return
     if wrappers:
         phase("wrappers", time_wrappers, dev, card)

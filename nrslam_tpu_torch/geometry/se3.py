@@ -22,7 +22,7 @@ class SE3(NamedTuple):
 
 def identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    q[..., 0].fill_(1.0)  # a fill, which a CUDA graph's capture can take
     t = torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device)
     return SE3(q, t)
 

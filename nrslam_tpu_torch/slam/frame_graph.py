@@ -73,12 +73,16 @@ def body(state, gray, mask, cam: cameras.Camera, config: Config,
 
 
 class KindGraphs:
-    """Both kinds of a frame (``make_keyframe`` False and True) captured
-    over static buffers on one card: ``outputs`` (a tree whose first
-    element is the state) packed into one buffer (``views`` into it),
-    ``gray`` and ``mask``. A subclass gives ``_body(views, kf)``, which
-    writes the frame of kind ``kf`` from ``views[0]`` into ``views``, and
-    ``_check()``, which raises where the inputs cannot be captured.
+    """The kinds of a frame (``kinds``: ``make_keyframe`` False and True)
+    captured over static buffers on one card: ``outputs`` (a tree whose
+    first element is the state) packed into one buffer (``views`` into
+    it), ``gray`` and ``mask``. A subclass gives ``_body(views, kf)``,
+    which writes the frame of kind ``kf`` from ``views[0]`` into ``views``,
+    and ``_check()``, which raises where the inputs cannot be captured.
+    Each kind's capture has a memory pool of its own, or with
+    ``shared_pool`` all share one: for kinds that replay one at a time in
+    any order, and whose bodies write every result into ``views``, so that
+    what a capture leaves in the pool is only what its body freed.
 
     ``replays`` counts replays; ``recorded[kf]`` the host tally the
     capture of kind ``kf`` recorded (``profiler.record``: what each replay
@@ -91,6 +95,9 @@ class KindGraphs:
 
     # torch.cuda.graph's capture_error_mode.
     capture_mode = "global"
+    # The kinds, in the order the warm-up runs them.
+    kinds = (False, True)
+    shared_pool = False
 
     def __init__(self, outputs, gray, mask):
         self.device = gray.device
@@ -114,10 +121,10 @@ class KindGraphs:
         raise NotImplementedError
 
     def _build(self) -> None:
-        """Warm up one frame of each kind on a scratch copy of the state on
-        a side stream (the kernel library, cached device constants, the
+        """Warm up each kind in turn on a scratch copy of the state on a
+        side stream (the kernel library, cached device constants, the
         cuBLAS handles, a process group's communicator; no mark or count
-        is taken, ``profiler.QUIET``), then capture both kinds; the static
+        is taken, ``profiler.QUIET``), then capture each kind; the static
         state does not advance, and the host tally ends as it began."""
         self._check()
         dev = self.device
@@ -127,15 +134,17 @@ class KindGraphs:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), profiler.recording(profiler.QUIET):
                 scratch = tree.unpack(self.buf.clone(), self.packing)
-                for kf in (False, True):
+                for kf in self.kinds:
                     self._body(scratch, kf)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
 
         profiler.record(warm_up)
-        for kf in (False, True):
+        self._pool = torch.cuda.graph_pool_handle() if self.shared_pool \
+            else None
+        for kf in self.kinds:
             self.stamps[kf] = profiler.Stamps(dev)
-        for kf in (False, True):
+        for kf in self.kinds:
             # The capture empties the allocator's cache first too: what is
             # reserved after it beyond this is the graph's pool.
             torch.cuda.empty_cache()
@@ -149,7 +158,8 @@ class KindGraphs:
 
     def _capture(self, kf: bool):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode=self.capture_mode), \
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode=self.capture_mode), \
                 profiler.recording(self.stamps[kf]) as stamps:
             self._body(self.views, kf)
             stamps.end()

@@ -18,7 +18,11 @@ and success flags once each.
 On the card, ``System`` builds a ``frame_graph.FrameGraph`` (both frame
 kinds captured as CUDA graphs) at its first steady frame and replays it for
 every steady frame after, a re-initialised map included; on the CPU it
-calls ``frame_step``.
+calls ``frame_step``. Likewise it builds an ``init_graph.InitGraphs`` (an
+init frame's device work between its host reads, captured as CUDA graphs)
+at its first init frame on the card and replays it for every init frame
+after, every recovery included; on the CPU it calls the initializer's
+``reset`` and ``init_step``.
 
 While a tracer is on (``utils.profiler.tracing``), each ``track_image``
 call is one frame record: its ``nrslam.`` spans, its kind, its counters
@@ -207,8 +211,10 @@ class System:
         self.evaluator = evaluator_mod.FrameEvaluator()
         self._image_shape = None
         self._ones_mask = None
-        # The captured frame (frame_graph.FrameGraph), on the card only.
+        # The captured frame (frame_graph.FrameGraph) and the captured init
+        # (init_graph.InitGraphs), on the card only.
         self.frame_graph = None
+        self.init_graphs = None
 
     # -- preprocessing ------------------------------------------------------
 
@@ -250,8 +256,7 @@ class System:
         if self.status == NOT_INITIALIZED:
             profiler.note(kind="init")
             with profiler.span("nrslam.system.init"):
-                pyramid = klt.build_pyramid(gray, self.config.klt_config)
-                self._initialize(pyramid, mask)
+                self._initialize(gray, mask)
             return {"status": self.status}
 
         make_kf = self._frames_since_kf >= self.config.keyframe_every
@@ -321,19 +326,40 @@ class System:
 
     # -- initialisation -----------------------------------------------------
 
-    def _initialize(self, pyramid, mask):
+    def _init_graphs(self, gray, mask):
+        """The captured init, built at the first init frame on the card;
+        None on the CPU."""
+        if self.init_graphs is None and self.device.type == "cuda":
+            from nrslam_tpu_torch.slam import init_graph
+            with profiler.span("nrslam.system.init_graph_build"):
+                self.init_graphs = init_graph.InitGraphs(
+                    gray, mask, self.cam, self.config.klt_config,
+                    self.init_config)
+        return self.init_graphs
+
+    def _initialize(self, gray, mask):
         cfg = self.init_config
         kcfg = self.config.klt_config
+        graphs = self._init_graphs(gray, mask)
+        if graphs is None:
+            pyramid = klt.build_pyramid(gray, kcfg)
+        else:
+            pyramid = graphs.pyramid(gray, mask)
         if self.init_state is None:
-            self.init_state = init_mod.reset(pyramid, mask, 0, kcfg, cfg)
+            self.init_state = (init_mod.reset(pyramid, mask, 0, kcfg, cfg)
+                               if graphs is None else graphs.reset())
             self._init_ring = []
             self._init_count = 0
             return
 
         perm, gumbel = self._draws(self._init_count)
-        self.init_state, result = init_mod.init_step(
-            self.init_state, pyramid, mask, perm, gumbel, self.cam, kcfg,
-            cfg)
+        if graphs is None:
+            self.init_state, result = init_mod.init_step(
+                self.init_state, pyramid, mask, perm, gumbel, self.cam, kcfg,
+                cfg)
+        else:
+            self.init_state, result, pyramid = graphs.step(self.init_state,
+                                                           perm, gumbel)
         self._init_ring.append((result, pyramid))
         self._init_count += 1
         if self._init_count % self.init_check_every:

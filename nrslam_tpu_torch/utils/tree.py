@@ -49,33 +49,39 @@ ALIGN = 512
 class Packing(NamedTuple):
     """Where every tensor leaf of a tree sits in one flat uint8 buffer of
     ``nbytes``: leaf k is ``specs[k]`` = (first byte, a multiple of
-    ``ALIGN``; its bytes; dtype; shape). ``template`` is the tree with its
-    leaves replaced by their index."""
+    ``ALIGN``; its bytes; dtype; shape), laid out with ``strides[k]``: the
+    leaf's own where it is dense (a permutation of a contiguous layout, as
+    LAPACK's column-major results are), else contiguous, so an operation on
+    a packed view sees the layout it sees on the leaf. ``template`` is the
+    tree with its leaves replaced by their index."""
 
     template: object
     specs: tuple
     nbytes: int
+    strides: tuple
 
 
 def packing(tree) -> Packing:
     """The packing of ``tree``'s tensor leaves, in ``tree_map`` order."""
-    specs, at = [], 0
+    specs, strides, at = [], [], 0
     for x in leaves(tree):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"packing: leaf of type {type(x).__name__}, "
                             "expected tensors only")
         n = x.numel() * x.element_size()
         specs.append((at, n, x.dtype, tuple(x.shape)))
+        strides.append(torch.empty_like(x, device="meta").stride())
         at += -(-n // ALIGN) * ALIGN
     index = iter(range(len(specs)))
-    return Packing(tree_map(lambda _: next(index), tree), tuple(specs), at)
+    return Packing(tree_map(lambda _: next(index), tree), tuple(specs), at,
+                   tuple(strides))
 
 
 def unpack(buf: torch.Tensor, p: Packing):
     """The tree of ``p``'s structure whose leaves are views into ``buf``
     (uint8 [p.nbytes])."""
-    views = [buf[at:at + n].view(dtype).view(shape)
-             for at, n, dtype, shape in p.specs]
+    views = [buf[at:at + n].view(dtype).as_strided(shape, stride)
+             for (at, n, dtype, shape), stride in zip(p.specs, p.strides)]
     return tree_map(lambda k: views[k], p.template)
 
 

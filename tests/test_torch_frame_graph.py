@@ -14,8 +14,6 @@ both kinds with n_tracked_3d 0. ``FrameGraph`` raises on CPU tensors, and
 a CPU ``System`` builds no graph and calls nothing of ``torch.cuda``.
 """
 
-import sys
-
 import numpy as np
 import pytest
 import torch
@@ -26,7 +24,8 @@ from nrslam_tpu_torch.slam import frame_graph
 from nrslam_tpu_torch.slam import system as tsys
 from nrslam_tpu_torch.utils import profiler, tree
 
-from torch_parity import jax_bench_problem, np_of, quat_err, to_port
+from torch_parity import (cuda_calls, jax_bench_problem, np_of, quat_err,
+                          to_port)
 from torch_parity import pallas_ba_reference  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
@@ -253,34 +252,17 @@ def test_frame_graph_raises_on_cpu_tensors():
 
 def test_cpu_system_never_captures():
     """A CPU System in its steady state steps frame_step, builds no
-    FrameGraph and calls no function of torch.cuda (traced with
-    sys.setprofile)."""
+    FrameGraph and calls no function of torch.cuda (``cuda_calls``)."""
     state, frames, mask, cam, config = _bench()
     sysm = tsys.System(cam, config)
     sysm.state, sysm.status = state, tsys.TRACKING
     sysm._image_shape = tuple(frames[0].shape)
-    calls = []
-
-    def watch(frame, event, arg):
-        if event == "call":
-            where = frame.f_code.co_filename.replace("\\", "/")
-        elif event == "c_call":
-            where = getattr(arg, "__module__", None) or ""
-        else:
-            return
-        if "torch/cuda/" in where or where.startswith(("torch.cuda",
-                                                        "torch._C._cuda")):
-            calls.append(where)
-
     ref, outs = state, []
-    sys.setprofile(watch)
-    try:
+    with cuda_calls() as calls:
         for i in range(3):
             outs.append(sysm.track_image(frames[i]))
         seen = list(calls)
         torch.cuda.is_available()  # the watch sees such a call
-    finally:
-        sys.setprofile(None)
     assert sysm.frame_graph is None and seen == [] and calls
     for i in range(3):
         ref, r = tsys.frame_step(ref, frames[i], mask, cam, config, False)

@@ -205,3 +205,31 @@ def ba_floats(W, P, n, n_iters=5, cg_iters=16):
         cg_iters * (3 * W * P + 2 * c) + (3 * W * P + c)
         + cg_iters * (6 * W + 1) * c + S * c))
     return count, floats
+
+
+@contextlib.contextmanager
+def cuda_calls():
+    """The block traced with ``sys.setprofile``: yields the list that
+    collects every call into ``torch.cuda`` it makes (Python functions
+    under torch/cuda/ and C functions of ``torch.cuda`` or
+    ``torch._C._cuda*``)."""
+    import sys
+
+    calls = []
+
+    def watch(frame, event, arg):
+        if event == "call":
+            where = frame.f_code.co_filename.replace("\\", "/")
+        elif event == "c_call":
+            where = getattr(arg, "__module__", None) or ""
+        else:
+            return
+        if "torch/cuda/" in where or where.startswith(("torch.cuda",
+                                                        "torch._C._cuda")):
+            calls.append(where)
+
+    sys.setprofile(watch)
+    try:
+        yield calls
+    finally:
+        sys.setprofile(None)
